@@ -1,0 +1,64 @@
+"""Architecture registry: ``--arch <id>`` -> exact published config.
+
+A copy of the reference registry (``src/repro/configs``) without
+``specs.py``: the shape-struct helpers there lower through the JAX model
+code and arrive with the rest of the zoo.
+"""
+
+from repro_torch.configs.base import (
+    Family,
+    ModelConfig,
+    SHAPES,
+    ShapeConfig,
+    ShapeKind,
+    supports_decode,
+    supports_long_context,
+)
+from repro_torch.configs import (
+    deepseek_7b,
+    granite_34b,
+    h2o_danube_1_8b,
+    jamba_v0_1_52b,
+    mamba2_780m,
+    moonshot_v1_16b_a3b,
+    qwen2_72b,
+    qwen2_vl_7b,
+    qwen3_moe_30b_a3b,
+    whisper_base,
+)
+
+_MODULES = {
+    "mamba2-780m": mamba2_780m,
+    "deepseek-7b": deepseek_7b,
+    "h2o-danube-1.8b": h2o_danube_1_8b,
+    "qwen2-72b": qwen2_72b,
+    "granite-34b": granite_34b,
+    "qwen2-vl-7b": qwen2_vl_7b,
+    "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
+    "jamba-v0.1-52b": jamba_v0_1_52b,
+    "whisper-base": whisper_base,
+}
+
+ARCH_IDS: tuple[str, ...] = tuple(_MODULES)
+SHAPE_IDS: tuple[str, ...] = tuple(SHAPES)
+
+
+def get_config(arch: str, smoke: bool = False) -> ModelConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {list(_MODULES)}")
+    return _MODULES[arch].SMOKE if smoke else _MODULES[arch].FULL
+
+
+def get_shape(shape: str) -> ShapeConfig:
+    if shape not in SHAPES:
+        raise KeyError(f"unknown shape {shape!r}; known: {list(SHAPES)}")
+    return SHAPES[shape]
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """All 40 (arch x shape) cells of the assignment."""
+    return [(a, s) for a in ARCH_IDS for s in SHAPE_IDS]
+
+
+__all__ = [k for k in dir() if not k.startswith("_")]

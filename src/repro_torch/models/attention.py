@@ -1,0 +1,136 @@
+"""Grouped-query attention with causal / sliding-window masking and a ring
+KV cache (port of ``src/repro/models/attention.py``).
+
+Prefill attention runs through the flash-attention kernel of the kernel set
+it is given. ``decode_attention`` stays plain torch ops, as the reference
+computes it in jnp outside any kernel; it writes the new key/value into the
+cache in place (the reference returns an updated copy), which keeps one
+cache buffer per layer alive instead of two.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import KERNELS, KernelSet
+from repro_torch.models.layers import apply_rope, dense_init
+
+
+class Attention(nn.Module):
+    """Projection weights of one attention layer, reference leaf names."""
+
+    def __init__(self, cfg: ModelConfig, *, device,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.head_dim
+        kw = dict(device=device, generator=generator)
+        self.wq = dense_init(d, cfg.n_heads * hd, **kw)
+        self.wk = dense_init(d, cfg.n_kv_heads * hd, **kw)
+        self.wv = dense_init(d, cfg.n_kv_heads * hd, **kw)
+        self.wo = dense_init(cfg.n_heads * hd, d, **kw)
+        if cfg.qkv_bias:
+            zeros = lambda n: nn.Parameter(torch.zeros((n,), device=device))
+            self.bq = zeros(cfg.n_heads * hd)
+            self.bk = zeros(cfg.n_kv_heads * hd)
+            self.bv = zeros(cfg.n_kv_heads * hd)
+
+
+def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor):
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = x @ p.wq
+    k = x @ p.wk
+    v = x @ p.wv
+    if cfg.qkv_bias:
+        q = q + p.bq
+        k = k + p.bk
+        v = v + p.bv
+    return (q.reshape(B, S, cfg.n_heads, hd),
+            k.reshape(B, S, cfg.n_kv_heads, hd),
+            v.reshape(B, S, cfg.n_kv_heads, hd))
+
+
+def _rope(cfg: ModelConfig, q, k, positions):
+    if cfg.mrope:
+        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k
+
+
+def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, kernels: KernelSet = KERNELS
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full causal self-attention over x (training / prefill). Returns the
+    output and the rotated keys and values, which prefill caches."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x)
+    q, k = _rope(cfg, q, k, positions)
+    out = kernels.flash_attention(q, k, v, causal=True,
+                                  window=cfg.sliding_window)
+    return out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ p.wo, k, v
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Per-layer KV cache. For SWA layers the buffer is the window size and
+    written round-robin; for full attention it is the max sequence length."""
+
+    k: torch.Tensor  # (B, S_buf, Hkv, D)
+    v: torch.Tensor  # (B, S_buf, Hkv, D)
+    length: int  # tokens seen so far
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                  dtype=torch.bfloat16, *,
+                  device: str | torch.device = "cuda") -> KVCache:
+    dev = resolve_device(device)
+    buf = max_seq if cfg.sliding_window is None else min(max_seq,
+                                                         cfg.sliding_window)
+    shape = (batch, buf, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=dev),
+                   v=torch.zeros(shape, dtype=dtype, device=dev), length=0)
+
+
+def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                     cache: KVCache) -> tuple[torch.Tensor, KVCache]:
+    """One-token decode step: x (B, 1, d_model) against the cache."""
+    B = x.shape[0]
+    pos = cache.length  # absolute position of the new token
+    q, k, v = _project_qkv(p, cfg, x)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k = _rope(cfg, q, k, positions)
+
+    buf = cache.k.shape[1]
+    slot = pos % buf  # round-robin for SWA; == pos for full attention
+    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+
+    # Validity: ring slots written so far, and (for SWA) within the window.
+    # Slot i holds the largest position p <= pos with p % buf == i; the
+    # Python-style modulo of a negative number (torch.remainder) is what
+    # makes that formula right.
+    k_idx = torch.arange(buf, device=x.device)
+    if cfg.sliding_window is None:
+        valid = k_idx <= pos
+    else:
+        k_pos = pos - torch.remainder(pos - k_idx, buf)
+        valid = ((k_pos >= 0) & (k_pos > pos - cfg.sliding_window)
+                 & (k_pos <= pos))
+
+    Hkv, D, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    qg = q.reshape(B, 1, Hkv, H // Hkv, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, cache.k.to(q.dtype))
+    scores = scores.float() / math.sqrt(D)
+    scores = scores.masked_fill(~valid, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cache.v.to(q.dtype))
+    out = out.reshape(B, 1, H * D) @ p.wo
+    return out, KVCache(k=cache.k, v=cache.v, length=pos + 1)

@@ -1,0 +1,102 @@
+"""Shared building blocks (port of ``src/repro/models/layers.py``).
+
+Parameters are float32 (as the reference launcher makes them), keep the
+reference's leaf names and its (d_in, d_out) orientation, so ``x @ w``
+reads as it does there and a converted JAX param tree loads leaf for leaf. Every RMSNorm goes through the kernel set it is
+given (the CUDA kernel on the card).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels.ops import KERNELS, KernelSet
+
+
+def truncated_normal_(t: torch.Tensor, scale: float,
+                      generator: torch.Generator | None = None) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2], times ``scale`` (in place)."""
+    nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
+                          generator=generator)
+    return t.mul_(scale)
+
+
+def dense_init(d_in: int, d_out: int, *, device,
+               generator: torch.Generator | None = None) -> nn.Parameter:
+    w = torch.empty((d_in, d_out), device=device, dtype=torch.float32)
+    return nn.Parameter(truncated_normal_(w, d_in ** -0.5, generator))
+
+
+def embed_init(vocab: int, d: int, *, device,
+               generator: torch.Generator | None = None) -> nn.Parameter:
+    w = torch.empty((vocab, d), device=device, dtype=torch.float32)
+    return nn.Parameter(truncated_normal_(w, 1.0, generator))
+
+
+# --- RMSNorm --------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
+            kernels: KernelSet = KERNELS) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * scale`` in float32, cast to x.dtype."""
+    return kernels.rmsnorm(x, scale, eps=eps)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, eps: float = 1e-5, *, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones((d,), dtype=torch.float32,
+                                             device=device))
+
+    def forward(self, x: torch.Tensor,
+                kernels: KernelSet = KERNELS) -> torch.Tensor:
+        return rmsnorm(x, self.scale, self.eps, kernels)
+
+
+# --- SwiGLU MLP -------------------------------------------------------------------
+
+
+def mlp(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+        x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+class MLP(nn.Module):
+    def __init__(self, d: int, d_ff: int, *, device,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(device=device, generator=generator)
+        self.w_gate = dense_init(d, d_ff, **kw)
+        self.w_up = dense_init(d, d_ff, **kw)
+        self.w_down = dense_init(d_ff, d, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp(self.w_gate, self.w_up, self.w_down, x)
+
+
+# --- Rotary position embeddings ---------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    """(head_dim/2,) inverse frequencies, float64 on the host."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotate (..., seq, heads, head_dim) by per-token positions (..., seq):
+    half-split rotation in float32, with the inverse frequencies held in
+    float32 as the reference's jnp arrays hold them."""
+    head_dim = x.shape[-1]
+    inv_freq = torch.as_tensor(rope_frequencies(head_dim, theta),
+                               dtype=torch.float32, device=x.device)
+    angles = positions[..., None].float() * inv_freq  # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
