@@ -6,31 +6,42 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py [--profile]
 
 ``--profile`` adds a torch.profiler breakdown of device time by kernel
-over one warm ``generate`` of the main path.
+over one warm prefill and the decode steps of each served path.
 
 Phases (any failure ends the script with a non-zero exit):
 
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, one
-   process per source) and print the build time and ptxas' resource lines.
-2. Hold each kernel against its plain PyTorch version on the card at the
-   main-path shapes (flash attention f32/bf16, with a window, ragged S=96;
-   RMSNorm at prefill, decode and odd widths) within 5e-4 (f32) / 2e-2
-   (bf16), and time kernel, plain version and one PyTorch library call
-   with CUDA events, the L2 cache flushed before every launch.
-3. Drive the main path: ``repro_torch.launch.serve.main`` on the full
-   ``h2o-danube-1.8b`` (24 layers, d_model 2560, f32) routing one request
-   and generating (4, 16) tokens from (4, 512) prompts; the launch counters
-   must rise by exactly 24 (flash, prefill) and 49 x 16 (RMSNorm); the
-   prefill logits through the kernels must match the same module's prefill
-   through the plain versions.
-4. Check the card against the CPU on small inputs: the smoke config's
-   logits and greedy tokens, and the full config's routing decision.
+   process per source, all started together) and print the build time and
+   ptxas' resource lines.
+2. Hold each kernel against its plain PyTorch version on the card, and
+   time kernel, plain version and one PyTorch library call (where one
+   computes the same function) with CUDA events, the L2 cache flushed
+   before every launch: flash attention (danube f32/bf16, a window, ragged
+   S=96, qwen3's D=128 bf16), RMSNorm (prefill, decode and odd widths),
+   the SSD scan (mamba2-780m's prefill, the reference sweep in f32 and
+   bf16, ragged S, an initial state) and the grouped matmul (qwen3's
+   prefill and decode shapes in bf16 and f32, the reference sweep).
+   Tolerances are those of tests/test_kernels.py.
+3. Drive the three served paths through ``repro_torch.launch.serve.main``,
+   each at full width, routing one request and generating (4, 16) tokens
+   from (4, 512) prompts, the launch counters set to 0 just before each
+   and read just after; each count must be exact:
+   - ``h2o-danube-1.8b`` f32 (24 layers): 24 flash, 49 x 16 RMSNorm; its
+     prefill logits through the kernels match the plain versions;
+   - ``mamba2-780m`` f32 (48 layers): 48 SSD scans, 97 x 16 RMSNorm; its
+     prefill logits through the kernels match the plain versions;
+   - ``qwen3-moe-30b-a3b`` bf16 (48 layers): 48 flash, 97 x 16 RMSNorm,
+     3 x 48 x 16 grouped matmuls; logits finite, each layer's MoE through
+     the kernels matches the plain versions on the same input.
+4. Check the card against the CPU on small inputs: the three smoke
+   configs' logits and greedy tokens, and the full config's routing
+   decision.
 
 The second-last line is one JSON object ``{"kernels": [...]}`` with each
-kernel's launches on the main path, error, times and bound; the line before
-it is the card's name and power limit from nvidia-smi; the last line is
-``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device or
-without the repository beside this file.
+kernel's launches on the served paths, error, times and bound; the line
+before it is the card's name and power limit from nvidia-smi; the last
+line is ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA
+device or without the repository beside this file.
 """
 
 from __future__ import annotations
@@ -45,9 +56,11 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # no-TC f32, dense bf16 TC
 TOL = {"float32": 5e-4, "bfloat16": 2e-2}  # tests/test_kernels.py _tol
-LOGITS_TOL = 2e-3  # kernels vs plain versions through 24 f32 layers
-ARCH = "h2o-danube-1.8b"
+SSD_Y_TOL = {"float32": 5e-4, "bfloat16": 5e-2}  # tests/test_kernels.py SSD
+SSD_STATE_TOL = 5e-3
+LOGITS_TOL = 2e-3  # kernels vs plain versions through 24-48 f32 layers
 BATCH, PROMPT, NEW = 4, 512, 16
+DANUBE, MAMBA, QWEN3 = "h2o-danube-1.8b", "mamba2-780m", "qwen3-moe-30b-a3b"
 
 
 def fail(msg: str) -> None:
@@ -60,29 +73,44 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def profile_generate(torch, engine, prompt) -> None:
-    """Device time by kernel over one warm ``generate`` (torch.profiler).
-    Only device-side events count: an aten op's own device time repeats
-    the kernels it launched."""
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[1]
+
+
+def profile_path(torch, engine, prompt, label: str) -> None:
+    """Device time by kernel over one warm prefill and the decode steps of
+    one batch (torch.profiler). Only device-side events count: an aten
+    op's own device time repeats the kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    def report(part, prof, wall_us):
+        rows = sorted(((e.self_device_time_total, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA), reverse=True)
+        busy = sum(r[0] for r in rows)
+        print(f"[profile] {label} {part}: wall {wall_us / 1e3:.1f} ms, kernels "
+              f"{busy / 1e3:.1f} ms ({busy / wall_us:.1%} busy)")
+        for us, count, key in rows[:12]:
+            print(f"[profile]   {us / 1e3:9.3f} ms {us / busy:6.1%} "
+                  f"x{count:<5} {key[:90]}")
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch_profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        engine.generate(prompt, max_new_tokens=NEW)
+        logits, state = engine.prefill_batch(prompt)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
-    busy = sum(r[0] for r in rows)
-    print(f"[profile] generate under the profiler: wall {wall_us / 1e3:.1f} ms, "
-          f"kernels {busy / 1e3:.1f} ms ({busy / wall_us:.1%} busy)")
-    for us, count, key in rows[:15]:
-        print(f"[profile]   {us / 1e3:9.3f} ms {us / busy:6.1%} x{count:<5} "
-              f"{key[:90]}")
+        wall = (time.perf_counter() - t0) * 1e6
+    report("prefill", prof, wall)
+    with torch_profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(NEW - 1):
+            logits, state = engine.serve_step(
+                state, logits.argmax(-1, keepdim=True))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    report(f"{NEW - 1} decode steps", prof, wall)
 
 
 def main() -> None:
@@ -100,11 +128,13 @@ def main() -> None:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch import serve
     from repro_torch.models import Transformer
+    from repro_torch.models.moe import moe_forward
     from repro_torch.serve import GreenScaleRouter, Request, ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
@@ -121,7 +151,7 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
 
-    def randn(shape, dtype):
+    def randn(shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     def time_ms(fn, reps=20, warmup=3):
@@ -139,10 +169,9 @@ def main() -> None:
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in events) / reps
 
-    def compare(name, got, want, dtype):
+    def compare(name, got, want, tol):
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
-        tol = TOL[str(dtype).split(".")[1]]
         ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
         print(f"[kernel] {name}: max_abs_err {err:.3e} (atol = rtol = {tol:g}) "
               f"{'ok' if ok else 'MISMATCH'}")
@@ -151,147 +180,358 @@ def main() -> None:
 
     def bound(nbytes, flops, dtype):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype_name(dtype)] * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     results = {}
+
+    def timed(name, shape, err, fn, plain, library, nbytes, flops, dtype,
+              plain_reps=20):
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        return dict(name=name, shape=shape, max_abs_err=err, ms=time_ms(fn),
+                    plain_ms=time_ms(plain, reps=plain_reps),
+                    bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None if library is None else time_ms(library))
+
+    # flash attention
     flash_cases = [  # (label, B, S, H, Hkv, D, window, dtype)
         ("main f32", BATCH, PROMPT, 32, 8, 80, None, torch.float32),
         ("main bf16", BATCH, PROMPT, 32, 8, 80, None, torch.bfloat16),
         ("window 256", 2, 1024, 32, 8, 80, 256, torch.float32),
         ("ragged S=96 D=16", 2, 96, 4, 2, 16, 16, torch.float32),
         ("ragged S=96 D=16 bf16", 2, 96, 4, 2, 16, 16, torch.bfloat16),
+        ("qwen3 bf16", BATCH, PROMPT, 32, 4, 128, None, torch.bfloat16),
     ]
+    flash_more = []
     for label, B, S, H, Hkv, D, window, dtype in flash_cases:
         q, k, v = (randn((B, S, h, D), dtype) for h in (H, Hkv, Hkv))
         err = compare(f"flash_attention {label} q{(B, S, H, D)}",
                       ops.flash_attention(q, k, v, causal=True, window=window),
                       ref.flash_attention_ref(q, k, v, causal=True,
-                                              window=window), dtype)
-        if label != "main f32":
+                                              window=window),
+                      TOL[dtype_name(dtype)])
+        if label not in ("main f32", "qwen3 bf16"):
             continue
         pos = torch.arange(S)
         pairs = int((pos[None, :] <= pos[:, None]).sum())  # visible (q, k)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        b_ms, b_by = bound(nbytes, 4 * B * H * D * pairs, dtype)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        results["flash_attention"] = dict(
-            name="flash_attention", route="cuda",
-            source="src/repro_torch/kernels/csrc/flash_attention.cu",
-            replaces="src/repro/kernels/flash_attention.py:27",
-            shape=f"q{(B, S, H, D)} kv{(B, S, Hkv, D)} causal float32",
-            max_abs_err=err,
-            ms=time_ms(lambda: ops.flash_attention(q, k, v, causal=True)),
-            plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v,
-                                                             causal=True)),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)))
+        r = timed(
+            "flash_attention",
+            f"q{(B, S, H, D)} kv{(B, S, Hkv, D)} causal {dtype_name(dtype)}",
+            err, lambda: ops.flash_attention(q, k, v, causal=True),
+            lambda: ref.flash_attention_ref(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True),
+            (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+            4 * B * H * D * pairs, dtype)
+        if label == "main f32":
+            results["flash_attention"] = dict(
+                r, route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:27")
+        else:
+            flash_more.append(r)
+    results["flash_attention"]["other_shapes"] = flash_more
 
+    # RMSNorm
     norm_cases = [((2048, 2560), torch.float32), ((2048, 2560), torch.bfloat16),
                   ((4, 2560), torch.float32), ((4, 2560), torch.bfloat16),
-                  ((4, 37, 96), torch.float32), ((4, 37, 96), torch.bfloat16)]
+                  ((4, 37, 96), torch.float32), ((4, 37, 96), torch.bfloat16),
+                  # qwen3 (bf16) and mamba2 (f32: d_model, gated d_inner)
+                  ((2048, 2048), torch.bfloat16), ((4, 2048), torch.bfloat16),
+                  ((2048, 1536), torch.float32), ((2048, 3072), torch.float32),
+                  ((4, 1536), torch.float32), ((4, 3072), torch.float32)]
     for shape, dtype in norm_cases:
         x = randn(shape, dtype)
-        scale = randn(shape[-1:], torch.float32)
-        err = compare(f"fused_rmsnorm {shape} {str(dtype)[6:]}",
+        scale = randn(shape[-1:])
+        err = compare(f"fused_rmsnorm {shape} {dtype_name(dtype)}",
                       ops.fused_rmsnorm(x, scale), ref.rmsnorm_ref(x, scale),
-                      dtype)
+                      TOL[dtype_name(dtype)])
         if shape != (2048, 2560) or dtype != torch.float32:
             continue
-        nbytes = 2 * x.numel() * x.element_size() + scale.numel() * 4
-        b_ms, b_by = bound(nbytes, 4 * x.numel(), dtype)
-        results["fused_rmsnorm"] = dict(
-            name="fused_rmsnorm", route="cuda",
-            source="src/repro_torch/kernels/csrc/rmsnorm.cu",
-            replaces="src/repro/kernels/rmsnorm.py:19",
-            shape="x(2048, 2560) float32",
-            max_abs_err=err,
-            ms=time_ms(lambda: ops.fused_rmsnorm(x, scale)),
-            plain_ms=time_ms(lambda: ref.rmsnorm_ref(x, scale)),
-            bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(lambda: F.rms_norm(x, (shape[-1],), scale,
-                                                  1e-5)))
-    for r in results.values():
+        results["fused_rmsnorm"] = dict(timed(
+            "fused_rmsnorm", "x(2048, 2560) float32", err,
+            lambda: ops.fused_rmsnorm(x, scale),
+            lambda: ref.rmsnorm_ref(x, scale),
+            lambda: F.rms_norm(x, (shape[-1],), scale, 1e-5),
+            2 * x.numel() * x.element_size() + scale.numel() * 4,
+            4 * x.numel(), dtype),
+            route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+            replaces="src/repro/kernels/rmsnorm.py:19")
+
+    # SSD scan
+    def ssd_inputs(B, S, H, P, N, dtype, init, model_like=False):
+        x = randn((B, S, H, P), dtype)
+        if model_like:  # mamba2's A = -(1..H), dt = softplus(.) ~ 0.1-1
+            A = -torch.arange(1, H + 1, device=dev, dtype=torch.float32)
+        else:  # tests/test_kernels.py
+            A = -torch.exp(randn((H,)) * 0.5)
+        dt = F.softplus(randn((B, S, H)))
+        bc = randn((B, S, 1, 2 * N), dtype)
+        Bm, Cm = bc[..., :N], bc[..., N:]  # strided, as the model passes them
+        D = randn((H,))
+        s0 = randn((B, H, P, N)) if init else None
+        return x, dt, A, Bm, Cm, D, s0
+
+    def ssd_work(B, S, H, P, N, L, elt, init):
+        """Least operations and bytes that compute the function on these
+        inputs. Operations: the fewer of two ways. Chunked at L: the
+        lower-triangle C.B^T and W.x per chunk, C.state where a state
+        enters the chunk (not the first one without an initial state), the
+        deposit. The token recurrence: per token and head a decay multiply,
+        a deposit FMA and a C.h FMA over P x N, 5 P N. Bytes: each input
+        read once, y and the state written once."""
+        chunked = 0
+        for c0 in range(0, S, L):
+            Lc = min(L, S - c0)
+            chunked += Lc * (Lc + 1) // 2 * 2 * (N + P) + 2 * Lc * P * N
+            if c0 > 0 or init:
+                chunked += 2 * Lc * P * N
+        flops = B * H * min(chunked, 5 * S * P * N)
+        nbytes = (2 * B * S * H * P * elt + 2 * B * S * N * elt
+                  + 4 * B * S * H + 8 * H + 4 * B * H * P * N * (2 if init else 1))
+        return nbytes, flops
+
+    ssd_cases = [  # (label, B, S, H, P, N, chunk, dtype, initial state)
+        ("main", BATCH, PROMPT, 48, 64, 128, 256, torch.float32, False),
+        ("main, initial state", BATCH, PROMPT, 48, 64, 128, 256,
+         torch.float32, True),
+        ("ragged S=100", 2, 100, 8, 64, 128, 32, torch.float32, False),
+        ("ragged S=96 chunk 64", 1, 96, 4, 16, 16, 64, torch.bfloat16, True),
+        ("initial state", 1, 32, 4, 8, 16, 8, torch.float32, True),
+    ] + [(f"sweep {dtype_name(dt_)}", b, s, h, p, n, L, dt_, False)
+         for dt_ in (torch.float32, torch.bfloat16)
+         for b, s, h, p, n, L in ((2, 64, 8, 16, 16, 16),
+                                  (1, 128, 16, 32, 32, 32),
+                                  (2, 96, 4, 8, 8, 24),
+                                  (1, 64, 8, 64, 128, 16))]
+    for label, B, S, H, P, N, L, dtype, init in ssd_cases:
+        args = ssd_inputs(B, S, H, P, N, dtype, init,
+                          model_like=label.startswith("main"))
+        x, dt, A, Bm, Cm, D, s0 = args
+        y, sf = ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=L, initial_state=s0)
+        yr, sr = ref.ssd_ref(x, dt, A, Bm, Cm, D, s0)
+        name = f"ssd_scan {label} x{(B, S, H, P)} N={N} chunk {L}"
+        err = compare(f"{name} {dtype_name(dtype)} y", y, yr,
+                      SSD_Y_TOL[dtype_name(dtype)])
+        compare(f"{name} final state", sf, sr, SSD_STATE_TOL)
+        if label != "main":
+            continue
+        nbytes, flops = ssd_work(B, S, H, P, N, L, x.element_size(), init)
+        results["ssd_scan"] = dict(timed(
+            "ssd_scan", f"x{(B, S, H, P)} B/C{(B, S, 1, N)} chunk {L} float32",
+            err, lambda: ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=L),
+            lambda: ref.ssd_ref(x, dt, A, Bm, Cm, D), None, nbytes, flops,
+            torch.float32, plain_reps=3),
+            route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan.py:29")
+
+    # grouped matmul: qwen3's expert FF at prefill (G=2 groups of 1024
+    # tokens, C=80) and at decode (C=8), gate/up and down, then the sweep
+    gmm_cases = [  # (label, E, C, d, f, dtype)
+        ("prefill gate/up", 128, 160, 2048, 768, torch.bfloat16),
+        ("prefill down", 128, 160, 768, 2048, torch.bfloat16),
+        ("decode gate/up", 128, 8, 2048, 768, torch.bfloat16),
+        ("prefill gate/up", 128, 160, 2048, 768, torch.float32),
+        ("decode down", 128, 8, 768, 2048, torch.bfloat16),
+        ("decode down", 128, 8, 768, 2048, torch.float32),
+    ] + [("sweep", e, c, d, f, dt_) for dt_ in (torch.float32, torch.bfloat16)
+         for e, c, d, f in ((4, 32, 64, 48), (8, 16, 32, 32),
+                            (2, 128, 128, 128), (16, 8, 16, 8))]
+    gmm_more = []
+    for label, E, C, d, f, dtype in gmm_cases:
+        x, w = randn((E, C, d), dtype), randn((E, d, f), dtype)
+        err = compare(f"grouped_matmul {label} {(E, C, d)}@{(E, d, f)} "
+                      f"{dtype_name(dtype)}", ops.grouped_matmul(x, w),
+                      ref.grouped_matmul_ref(x, w), TOL[dtype_name(dtype)])
+        if dtype != torch.bfloat16 or label not in ("prefill gate/up",
+                                                    "decode gate/up"):
+            continue
+        r = timed("grouped_matmul",
+                  f"{(E, C, d)}@{(E, d, f)} {dtype_name(dtype)}", err,
+                  lambda: ops.grouped_matmul(x, w),
+                  lambda: ref.grouped_matmul_ref(x, w),
+                  lambda: torch.bmm(x, w),
+                  (x.numel() + w.numel() + E * C * f) * x.element_size(),
+                  2 * E * C * d * f, dtype)
+        if label == "prefill gate/up":
+            results["grouped_matmul"] = dict(
+                r, route="cuda",
+                source="src/repro_torch/kernels/csrc/grouped_matmul.cu",
+                replaces="src/repro/kernels/moe_matmul.py:21")
+        else:
+            gmm_more.append(r)
+    results["grouped_matmul"]["other_shapes"] = gmm_more
+
+    def show(r):
+        lib = "no single call" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
         print(f"[time] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, library {lib}, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    for r in results.values():
+        show(r)
+        for more in r.get("other_shapes", []):
+            show(more)
     del flush
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] kernels phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
 
-    # --- phase 3: the main path at full width ---------------------------------
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    run = serve.main(["--arch", ARCH, "--no-smoke", "--device", "cuda",
-                      "--batch", str(BATCH), "--prompt-len", str(PROMPT),
-                      "--new-tokens", str(NEW)])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
-    cfg = run.cfg
-    n_params = sum(p.numel() for p in run.engine.model.parameters())
-    print(f"[main] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{n_params / 1e9:.3f} B f32 params; tokens {tuple(run.tokens.shape)}; "
-          f"{wall:.1f} s including init; launches {launches}")
-    check(cfg.n_layers == 24 and cfg.d_model == 2560, "not the full config")
-    check(n_params == cfg.param_count(), "parameter count")
-    check(tuple(run.tokens.shape) == (BATCH, NEW), "token shape")
-    check(bool(((run.tokens >= 0) & (run.tokens < cfg.vocab_size)).all()),
-          "token ids out of range")
-    want = {"flash_attention": cfg.n_layers,
-            "fused_rmsnorm": (2 * cfg.n_layers + 1) * NEW}
-    check(launches == want, f"launch counts {launches}, expected {want}")
-    for name in results:
-        results[name]["launches"] = launches[name]
+    # --- phase 3: the served paths at full width ------------------------------
+    for r in results.values():
+        r["launches_by_path"] = {}
 
-    engine, model = run.engine, run.engine.model
-    t0 = time.perf_counter()
-    logits, state = engine.prefill_batch(run.prompt)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for _ in range(NEW - 1):
-        logits, state = engine.serve_step(state, logits.argmax(-1, keepdim=True))
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    print(f"[main] again, warm: prefill ({BATCH}, {PROMPT}) {t1 - t0:.4f} s, "
-          f"{NEW - 1} decode steps {t2 - t1:.4f} s "
-          f"({(t2 - t1) / (NEW - 1) * 1e3:.2f} ms/step)")
-    if profile:
-        profile_generate(torch, engine, run.prompt)
-    max_seq = run.engine.max_seq
-    lk, _ = model.prefill(run.prompt, max_seq=max_seq, kernels=ops.KERNELS)
-    lp, _ = model.prefill(run.prompt, max_seq=max_seq, kernels=ops.PLAIN)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(lk).all()), "non-finite prefill logits")
-    err = (lk - lp).abs().max().item()
-    print(f"[main] prefill logits {tuple(lk.shape)} kernels vs plain: "
-          f"max_abs_err {err:.3e} (tol {LOGITS_TOL:g}), "
-          f"logit std {lp.std().item():.3f}")
-    check(torch.allclose(lk, lp, atol=LOGITS_TOL, rtol=LOGITS_TOL),
-          "prefill logits through the kernels disagree with the plain path")
-    del model, run, lk, lp
+    def drive(arch, dtype, want):
+        """One launcher run with the counters set to 0 just before it and
+        read just after; the counts must equal ``want``."""
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        run = serve.main(["--arch", arch, "--no-smoke", "--device", "cuda",
+                          "--dtype", dtype, "--batch", str(BATCH),
+                          "--prompt-len", str(PROMPT),
+                          "--new-tokens", str(NEW)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        cfg = run.cfg
+        n_params = sum(p.numel() for p in run.engine.model.parameters())
+        print(f"[main] {cfg.name}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {n_params / 1e9:.3f} B {dtype} params; tokens "
+              f"{tuple(run.tokens.shape)}; {wall:.1f} s including init; "
+              f"launches {launches}")
+        check(cfg.name == arch, "not the full config")
+        check(n_params == cfg.param_count(), "parameter count")
+        check(tuple(run.tokens.shape) == (BATCH, NEW), "token shape")
+        check(bool(((run.tokens >= 0) & (run.tokens < cfg.vocab_size)).all()),
+              "token ids out of range")
+        want = dict({k: 0 for k in launches}, **want)
+        check(launches == want, f"{arch}: launch counts {launches}, "
+              f"expected {want}")
+        for name, r in results.items():
+            r["launches_by_path"][arch] = launches[name]
+        return run
+
+    def warm(run, label):
+        engine = run.engine
+        t0 = time.perf_counter()
+        logits, state = engine.prefill_batch(run.prompt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs = [logits]
+        for _ in range(NEW - 1):
+            logits, state = engine.serve_step(
+                state, logits.argmax(-1, keepdim=True))
+            outs.append(logits)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        print(f"[main] {label} again, warm: prefill ({BATCH}, {PROMPT}) "
+              f"{t1 - t0:.4f} s, {NEW - 1} decode steps {t2 - t1:.4f} s "
+              f"({(t2 - t1) / (NEW - 1) * 1e3:.2f} ms/step)")
+        check(all(bool(torch.isfinite(o).all()) for o in outs),
+              f"{label}: non-finite logits")
+        if profile:
+            profile_path(torch, engine, run.prompt, label)
+
+    def kernels_vs_plain(run, label):
+        model, max_seq = run.engine.model, run.engine.max_seq
+        lk, _ = model.prefill(run.prompt, max_seq=max_seq, kernels=ops.KERNELS)
+        lp, _ = model.prefill(run.prompt, max_seq=max_seq, kernels=ops.PLAIN)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(lk).all()), f"{label}: non-finite logits")
+        err = (lk - lp).abs().max().item()
+        print(f"[main] {label} prefill logits {tuple(lk.shape)} kernels vs "
+              f"plain: max_abs_err {err:.3e} (tol {LOGITS_TOL:g}), "
+              f"logit std {lp.std().item():.3f}")
+        check(torch.allclose(lk, lp, atol=LOGITS_TOL, rtol=LOGITS_TOL),
+              f"{label}: prefill logits through the kernels disagree with "
+              "the plain path")
+
+    L_D = get_config(DANUBE).n_layers
+    run = drive(DANUBE, "float32", {"flash_attention": L_D,
+                                    "fused_rmsnorm": (2 * L_D + 1) * NEW})
+    warm(run, DANUBE)
+    kernels_vs_plain(run, DANUBE)
+    run = None
     torch.cuda.empty_cache()
 
+    L_M = get_config(MAMBA).n_layers
+    run = drive(MAMBA, "float32", {"ssd_scan": L_M,
+                                   "fused_rmsnorm": (2 * L_M + 1) * NEW})
+    warm(run, MAMBA)
+    kernels_vs_plain(run, MAMBA)
+    run = None
+    torch.cuda.empty_cache()
+
+    cfg_q = get_config(QWEN3)
+    L_Q = cfg_q.n_layers
+    run = drive(QWEN3, "bfloat16", {"flash_attention": L_Q,
+                                    "fused_rmsnorm": (2 * L_Q + 1) * NEW,
+                                    "grouped_matmul": 3 * L_Q * NEW})
+    warm(run, QWEN3)
+    # Each layer's MoE on the hidden state that enters it on the plain
+    # path, through both kernel sets: with one input the routing is one,
+    # so the outputs compare at the bf16 tolerance (whole-model bf16
+    # logits do not: one flipped top-8 choice upstream moves them far).
+    model = run.engine.model
+    entering = []
+    hooks = [layer.moe.register_forward_pre_hook(
+        lambda mod, args: entering.append(args[0].clone()))
+        for layer in model.layers]
+    with torch.no_grad():
+        lp, _ = model.prefill(run.prompt, max_seq=run.engine.max_seq,
+                              kernels=ops.PLAIN)
+    for h in hooks:
+        h.remove()
+    check(len(entering) == L_Q and bool(torch.isfinite(lp).all()),
+          "plain prefill of qwen3")
+    del lp
+    worst = 0.0
+    with torch.no_grad():
+        for i, (layer, h) in enumerate(zip(model.layers, entering)):
+            ok_, _ = moe_forward(layer.moe, cfg_q, h, kernels=ops.KERNELS)
+            op_, _ = moe_forward(layer.moe, cfg_q, h, kernels=ops.PLAIN)
+            torch.cuda.synchronize()
+            err = (ok_.float() - op_.float()).abs().max().item()
+            worst = max(worst, err)
+            check(torch.allclose(ok_.float(), op_.float(), atol=TOL["bfloat16"],
+                                 rtol=TOL["bfloat16"]),
+                  f"{QWEN3} layer {i}: MoE through the kernels disagrees "
+                  f"with the plain versions (max_abs_err {err:.3e})")
+    print(f"[main] {QWEN3} each of {L_Q} layers' MoE, kernels vs plain on "
+          f"the plain path's hidden state: worst max_abs_err {worst:.3e} "
+          f"(atol = rtol = {TOL['bfloat16']:g})")
+    del model, entering, hooks
+    run = None
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] served paths done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+
     # --- phase 4: card against CPU on small inputs -----------------------------
-    smoke = get_config(ARCH, smoke=True)
-    cpu_model = Transformer(smoke, device="cpu",
-                            generator=torch.Generator().manual_seed(1))
-    gpu_model = Transformer(smoke, device=dev)
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    toks = torch.randint(0, smoke.vocab_size, (2, 40),
-                         generator=torch.Generator().manual_seed(2))
-    lc, _ = cpu_model.prefill(toks, max_seq=64)
-    lg, _ = gpu_model.prefill(toks.to(dev), max_seq=64)
-    err = (lg.cpu() - lc).abs().max().item()
-    print(f"[small] smoke prefill logits card vs CPU: max_abs_err {err:.3e}")
-    check(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4),
-          "smoke logits on the card disagree with the CPU")
-    eng = {d: ServeEngine(smoke, m, max_seq=64, device=d)
-           for d, m in (("cpu", cpu_model), ("cuda", gpu_model))}
-    tc = eng["cpu"].generate(toks, max_new_tokens=12)
-    tg = eng["cuda"].generate(toks, max_new_tokens=12)
-    check(torch.equal(tc, tg.cpu()), "greedy tokens differ card vs CPU")
-    print("[small] smoke greedy tokens card == CPU")
-    full = get_config(ARCH)
+    for arch in (DANUBE, MAMBA, QWEN3):
+        smoke = get_config(arch, smoke=True)
+        cpu_model = Transformer(smoke, device="cpu",
+                                generator=torch.Generator().manual_seed(1))
+        gpu_model = Transformer(smoke, device=dev)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        toks = torch.randint(0, smoke.vocab_size, (2, 40),
+                             generator=torch.Generator().manual_seed(2))
+        lc, _ = cpu_model.prefill(toks, max_seq=64)
+        lg, _ = gpu_model.prefill(toks.to(dev), max_seq=64)
+        err = (lg.cpu() - lc).abs().max().item()
+        print(f"[small] {smoke.name} prefill logits card vs CPU: "
+              f"max_abs_err {err:.3e}")
+        check(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4),
+              f"{smoke.name} logits on the card disagree with the CPU")
+        eng = {d: ServeEngine(smoke, m, max_seq=64, device=d)
+               for d, m in (("cpu", cpu_model), ("cuda", gpu_model))}
+        tc = eng["cpu"].generate(toks, max_new_tokens=12)
+        tg = eng["cuda"].generate(toks, max_new_tokens=12)
+        check(torch.equal(tc, tg.cpu()),
+              f"{smoke.name} greedy tokens differ card vs CPU")
+        print(f"[small] {smoke.name} greedy tokens card == CPU")
+    full = get_config(DANUBE)
     req = Request(prompt_tokens=PROMPT, max_new_tokens=NEW)
     dec = {d: GreenScaleRouter(full, device=d).route(
         req, serve.env_at_hour(12, device=d)) for d in ("cpu", "cuda")}
@@ -303,13 +543,18 @@ def main() -> None:
           f"{serve.TARGETS[dec['cuda'].target]}")
 
     # --- result lines ---------------------------------------------------------
+    for name, r in results.items():
+        r["launches"] = sum(r["launches_by_path"].values())
+        check(r["launches"] > 0, f"{name} was never launched on a served path")
+    print(f"[chip_smoke] done at {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "launches_by_path", "other_shapes")
     print(smi)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in results.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

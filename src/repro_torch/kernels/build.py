@@ -35,6 +35,14 @@ SIGNATURES = {
                            _I, _I, _F, _P],  # causal, window, scale, stream
     "gs_rmsnorm": [_I, _P, _P, _P, _L, _I, _F, _P],  # dtype, x, scale, y,
     #                                                  rows, d, eps, stream
+    "gs_ssd_scan": [_I, _P, _P, _P, _P, _P, _P,  # dtype, x, dt, A, B, C, D
+                    _P, _P, _P,  # initial state (or null), y, final state
+                    _I, _I, _I, _I, _I, _I, _I,  # B, S, H, G, P, N, chunk
+                    _L, _L, _L, _L, _L, _L,  # x, dt strides (b, s, h)
+                    _L, _L, _L, _L, _L, _L,  # B, C strides (b, s, g)
+                    _P],  # stream
+    "gs_grouped_matmul": [_I, _P, _P, _P,  # dtype, x, w, out
+                          _I, _I, _I, _I, _P],  # E, C, d, f, stream
 }
 
 

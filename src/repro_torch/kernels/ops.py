@@ -22,7 +22,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-LAUNCHES: dict[str, int] = {"flash_attention": 0, "fused_rmsnorm": 0}
+LAUNCHES: dict[str, int] = {"flash_attention": 0, "fused_rmsnorm": 0,
+                             "ssd_scan": 0, "grouped_matmul": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
@@ -41,7 +42,13 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
                              f"got {[str(x.device) for x in tensors]}")
 
 
+_CUDA_ERROR_INVALID_VALUE = 1  # an entry point refuses the sizes it got
+
+
 def _raise_on(name: str, err: int) -> None:
+    if err == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(f"{name}: the kernel refuses these sizes "
+                         f"(cudaErrorInvalidValue)")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with "
                            f"cudaError_t {err}")
@@ -107,17 +114,102 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     return y
 
 
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
+             chunk: int = 128, initial_state: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan. x (B,S,H,P), dt (B,S,H), A/D (H,), B/C (B,S,G,N),
+    initial_state (B,H,P,N) -> (y (B,S,H,P) in x's dtype, final state
+    (B,H,P,N) float32). Any S is taken: the kernel masks a ragged last
+    chunk instead of shrinking ``chunk`` to a divisor of S. The kernel
+    takes P <= 64 and N <= 128 and refuses sizes beyond them, or a chunk
+    below 1, with cudaErrorInvalidValue, raised here as ValueError."""
+    given = [x, dt, A, B, C, D] + ([] if initial_state is None
+                                   else [initial_state])
+    if all(t.device.type == "cpu" for t in given):
+        return ref.ssd_ref(x, dt, A, B, C, D, initial_state)
+    _check_cuda("ssd_scan", *given)
+    Bsz, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if (tuple(B.shape) != (Bsz, S, G, N) or tuple(C.shape) != tuple(B.shape)
+            or tuple(dt.shape) != (Bsz, S, H) or tuple(A.shape) != (H,)
+            or tuple(D.shape) != (H,) or G < 1 or H % G):
+        raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(B.shape)}, C {tuple(C.shape)}, D "
+                         f"{tuple(D.shape)} do not fit")
+    if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise TypeError(f"ssd_scan: float32 or bfloat16 x with B and C of "
+                        f"the same type, got {x.dtype}, {B.dtype}, {C.dtype}")
+    f32 = [dt, A, D] + ([] if initial_state is None else [initial_state])
+    if any(t.dtype != torch.float32 for t in f32):
+        raise TypeError("ssd_scan: dt, A, D and initial_state must be float32")
+    if any(t.stride(-1) != 1 for t in (x, B, C)) or not (
+            A.is_contiguous() and D.is_contiguous()):
+        raise ValueError("ssd_scan: x, B and C need a contiguous last "
+                         "dimension, A and D must be contiguous")
+    if initial_state is not None and (
+            tuple(initial_state.shape) != (Bsz, H, P, N)
+            or not initial_state.is_contiguous()):
+        raise ValueError(f"ssd_scan: initial_state must be contiguous "
+                         f"{(Bsz, H, P, N)}, got {tuple(initial_state.shape)}")
+    y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
+    final = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    s0 = 0 if initial_state is None else initial_state.data_ptr()
+    with torch.cuda.device(x.device):
+        err = build.library().gs_ssd_scan(
+            _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            B.data_ptr(), C.data_ptr(), D.data_ptr(), s0, y.data_ptr(),
+            final.data_ptr(), Bsz, S, H, G, P, N, int(chunk),
+            *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3],
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on("ssd_scan", err)
+    LAUNCHES["ssd_scan"] += 1
+    return y, final
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-expert matmul (E,C,d) @ (E,d,f) -> (E,C,f): float32
+    accumulation, the output in x's dtype."""
+    if x.device.type == "cpu" and w.device.type == "cpu":
+        return ref.grouped_matmul_ref(x, w)
+    _check_cuda("grouped_matmul", x, w)
+    E, C, d = x.shape
+    f = w.shape[-1]
+    if tuple(w.shape) != (E, d, f):
+        raise ValueError(f"grouped_matmul: shapes x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)} do not fit")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"grouped_matmul: float32 or bfloat16 x and w of one "
+                        f"type, got {x.dtype}, {w.dtype}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("grouped_matmul: x and w must be contiguous")
+    o = torch.empty((E, C, f), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = build.library().gs_grouped_matmul(
+            _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), o.data_ptr(),
+            E, C, d, f, torch.cuda.current_stream().cuda_stream)
+    _raise_on("grouped_matmul", err)
+    LAUNCHES["grouped_matmul"] += 1
+    return o
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelSet:
-    """The two functions the model's prefill/decode call for attention and
-    normalisation. ``KERNELS`` (the wrappers above) is what the model and
-    the engine always use; ``PLAIN`` exists so that a check can run the same
-    model through the plain versions on the card and compare."""
+    """The functions the model's prefill/decode call for attention,
+    normalisation, the SSD scan and the expert FF. ``KERNELS`` (the
+    wrappers above) is what the model and the engine always use; ``PLAIN``
+    exists so that a check can run the same model through the plain
+    versions on the card and compare."""
 
     flash_attention: Callable[..., torch.Tensor]
     rmsnorm: Callable[..., torch.Tensor]
+    ssd_scan: Callable[..., tuple[torch.Tensor, torch.Tensor]]
+    grouped_matmul: Callable[..., torch.Tensor]
 
 
-KERNELS = KernelSet(flash_attention=flash_attention, rmsnorm=fused_rmsnorm)
+KERNELS = KernelSet(flash_attention=flash_attention, rmsnorm=fused_rmsnorm,
+                    ssd_scan=ssd_scan, grouped_matmul=grouped_matmul)
 PLAIN = KernelSet(flash_attention=ref.flash_attention_ref,
-                  rmsnorm=ref.rmsnorm_ref)
+                  rmsnorm=ref.rmsnorm_ref, ssd_scan=ref.ssd_ref,
+                  grouped_matmul=ref.grouped_matmul_ref)

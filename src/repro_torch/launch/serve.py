@@ -4,8 +4,10 @@ Routes the batch's request with the ``GreenScaleRouter`` under the hour's
 carbon intensities (the paper's Table-1 decision), then generates through
 the ``ServeEngine``. Port of ``src/repro/launch/serve.py`` with two of its
 defects fixed in this copy: ``--smoke/--no-smoke`` really selects the
-config (default smoke), and the engine runs the kernels. Params are f32
-and drawn from a generator seeded by ``--seed``.
+config (default smoke), and the engine runs the kernels. Builds the DENSE,
+SSM and MOE families. Params are ``--dtype`` (float32 by default;
+``qwen3-moe-30b-a3b`` needs bfloat16 to fit one card) and drawn from a
+generator seeded by ``--seed``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,22 @@ from repro_torch.models import Transformer
 from repro_torch.serve import GreenScaleRouter, Request, RouteDecision, ServeEngine
 
 TARGETS = ("on-device", "edge-DC", "hyperscale-DC")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def check_fits(cfg: ModelConfig, dtype: torch.dtype,
+               device: torch.device) -> None:
+    """Raise, with the sizes, when the weights alone exceed the card."""
+    if device.type != "cuda":
+        return
+    need = cfg.param_count() * torch.empty((), dtype=dtype).element_size()
+    have = torch.cuda.get_device_properties(device).total_memory
+    if need > have:
+        raise ValueError(
+            f"{cfg.name}: {cfg.param_count() / 1e9:.2f} B parameters in "
+            f"{str(dtype)[6:]} take {need / 1e9:.1f} GB, more than the "
+            f"{have / 1e9:.1f} GB of {torch.cuda.get_device_name(device)}; "
+            "try --dtype bfloat16")
 
 
 def env_at_hour(hour: int, *,
@@ -63,6 +81,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", choices=tuple(DTYPES), default="float32")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -75,8 +94,10 @@ def main(argv=None) -> ServeRun:
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    dtype = DTYPES[args.dtype]
+    check_fits(cfg, dtype, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = Transformer(cfg, device=device, generator=gen)
+    model = Transformer(cfg, device=device, dtype=dtype, generator=gen)
 
     # --- route the batch with GreenScale ------------------------------------
     router = GreenScaleRouter(get_config(args.arch), device=device)

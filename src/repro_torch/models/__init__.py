@@ -1,6 +1,8 @@
-"""Model zoo of the port: the dense GQA decoder so far."""
+"""Model zoo of the port: the dense GQA, Mamba-2 (SSM) and MoE decoders."""
 
 from repro_torch.models.attention import KVCache, init_kv_cache
+from repro_torch.models.mamba2 import Mamba2, SSMState, init_ssm_state
+from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import (
     DecodeState,
     Transformer,

@@ -26,16 +26,18 @@ class Attention(nn.Module):
     """Projection weights of one attention layer, reference leaf names."""
 
     def __init__(self, cfg: ModelConfig, *, device,
+                 dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim
-        kw = dict(device=device, generator=generator)
+        kw = dict(device=device, dtype=dtype, generator=generator)
         self.wq = dense_init(d, cfg.n_heads * hd, **kw)
         self.wk = dense_init(d, cfg.n_kv_heads * hd, **kw)
         self.wv = dense_init(d, cfg.n_kv_heads * hd, **kw)
         self.wo = dense_init(cfg.n_heads * hd, d, **kw)
         if cfg.qkv_bias:
-            zeros = lambda n: nn.Parameter(torch.zeros((n,), device=device))
+            zeros = lambda n: nn.Parameter(torch.zeros((n,), device=device,
+                                                       dtype=dtype))
             self.bq = zeros(cfg.n_heads * hd)
             self.bk = zeros(cfg.n_kv_heads * hd)
             self.bv = zeros(cfg.n_kv_heads * hd)

@@ -1,9 +1,13 @@
 """Shared building blocks (port of ``src/repro/models/layers.py``).
 
-Parameters are float32 (as the reference launcher makes them), keep the
-reference's leaf names and its (d_in, d_out) orientation, so ``x @ w``
-reads as it does there and a converted JAX param tree loads leaf for leaf. Every RMSNorm goes through the kernel set it is
-given (the CUDA kernel on the card).
+Weights take the dtype they are given (float32 by default, as the
+reference launcher makes them; bfloat16 where a model does not fit the
+card in float32). They are drawn in float32 and cast tensor by tensor, so
+a bfloat16 model never holds a float32 copy of itself. Norm scales stay
+float32, as in the reference. Parameters keep the reference's leaf names
+and its (d_in, d_out) orientation, so ``x @ w`` reads as it does there and
+a converted JAX param tree loads leaf for leaf. Every RMSNorm goes through
+the kernel set it is given (the CUDA kernel on the card).
 """
 
 from __future__ import annotations
@@ -16,24 +20,30 @@ from torch import nn
 from repro_torch.kernels.ops import KERNELS, KernelSet
 
 
-def truncated_normal_(t: torch.Tensor, scale: float,
-                      generator: torch.Generator | None = None) -> torch.Tensor:
-    """Standard normal truncated to [-2, 2], times ``scale`` (in place)."""
+def truncated_normal_(shape: tuple[int, ...], scale: float, *, device,
+                      dtype: torch.dtype = torch.float32,
+                      generator: torch.Generator | None = None
+                      ) -> nn.Parameter:
+    """Standard normal truncated to [-2, 2], times ``scale``: drawn in
+    float32, then cast to ``dtype``."""
+    t = torch.empty(shape, device=device, dtype=torch.float32)
     nn.init.trunc_normal_(t, mean=0.0, std=1.0, a=-2.0, b=2.0,
                           generator=generator)
-    return t.mul_(scale)
+    return nn.Parameter(t.mul_(scale).to(dtype))
 
 
 def dense_init(d_in: int, d_out: int, *, device,
+               dtype: torch.dtype = torch.float32,
                generator: torch.Generator | None = None) -> nn.Parameter:
-    w = torch.empty((d_in, d_out), device=device, dtype=torch.float32)
-    return nn.Parameter(truncated_normal_(w, d_in ** -0.5, generator))
+    return truncated_normal_((d_in, d_out), d_in ** -0.5, device=device,
+                             dtype=dtype, generator=generator)
 
 
 def embed_init(vocab: int, d: int, *, device,
+               dtype: torch.dtype = torch.float32,
                generator: torch.Generator | None = None) -> nn.Parameter:
-    w = torch.empty((vocab, d), device=device, dtype=torch.float32)
-    return nn.Parameter(truncated_normal_(w, 1.0, generator))
+    return truncated_normal_((vocab, d), 1.0, device=device, dtype=dtype,
+                             generator=generator)
 
 
 # --- RMSNorm --------------------------------------------------------------------
@@ -67,9 +77,10 @@ def mlp(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
 
 class MLP(nn.Module):
     def __init__(self, d: int, d_ff: int, *, device,
+                 dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
-        kw = dict(device=device, generator=generator)
+        kw = dict(device=device, dtype=dtype, generator=generator)
         self.w_gate = dense_init(d, d_ff, **kw)
         self.w_up = dense_init(d, d_ff, **kw)
         self.w_down = dense_init(d_ff, d, **kw)

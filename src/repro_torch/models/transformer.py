@@ -1,14 +1,18 @@
-"""Dense GQA decoder (port of the DENSE family of
+"""Decoder stack of the DENSE, SSM and MOE families (port of
 ``src/repro/models/transformer.py``).
 
 ``Transformer`` is an ``nn.Module`` whose parameters keep the reference's
 leaf names and (d_in, d_out) orientation; the reference stacks each
 sub-layer position over super-blocks for ``lax.scan``, the port keeps one
 ``DecoderLayer`` per layer in a ``ModuleList`` and ``load_jax_params``
-unstacks. Prefill attention and every RMSNorm go through the CUDA kernels
-(their plain versions on CPU tensors). Only ``prefill`` takes another
-kernel set, so that a check can hold it against the plain versions on the
-card; ``forward`` and ``decode_step`` always use the kernels.
+unstacks. Each layer follows its ``SubLayerKind``: an attention or Mamba-2
+mixer, then a dense SwiGLU, an MoE or no FF. Prefill attention, the SSD
+scan, the expert FF and every RMSNorm go through the CUDA kernels (their
+plain versions on CPU tensors); the expert FF does in decode too. Only
+``prefill`` takes another kernel set, so that a check can hold it against
+the plain versions on the card; ``forward`` and ``decode_step`` always use
+the kernels. HYBRID (jamba), encoder-decoder (whisper) and M-RoPE
+(qwen2-vl) models are not ported yet.
 
 Quirks kept from the reference: ``prefill`` materialises the caches in
 ``cache_dtype``, bfloat16 by default whatever ``cfg.cache_dtype`` says,
@@ -19,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -32,6 +36,15 @@ from repro_torch.kernels.ops import KERNELS, KernelSet
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import MLP, RMSNorm, dense_init, embed_init
+from repro_torch.models.mamba2 import (
+    Mamba2,
+    SSMState,
+    mamba_decode_step,
+    mamba_forward,
+)
+from repro_torch.models.moe import MoE
+
+_FAMILIES = (Family.DENSE, Family.SSM, Family.MOE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,23 +84,44 @@ def layer_kinds(cfg: ModelConfig) -> list[SubLayerKind]:
 
 @dataclasses.dataclass
 class DecodeState:
-    """One KVCache per layer, and the count of tokens seen so far."""
+    """One cache per layer (a KVCache for attention, an SSMState for
+    Mamba-2), and the count of tokens seen so far."""
 
-    caches: list[KVCache]
+    caches: list[Union[KVCache, SSMState]]
     step: int
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm attention + SwiGLU block."""
+    """One pre-norm layer of the given kind: ``norm1`` + an ``attn`` or
+    ``mamba`` mixer, then ``norm2`` + an ``ff`` (SwiGLU) or ``moe`` FF, or
+    no FF (the SSM family)."""
 
-    def __init__(self, cfg: ModelConfig, *, device,
-                 generator: torch.Generator | None):
+    def __init__(self, cfg: ModelConfig, kind: SubLayerKind, *, device,
+                 dtype: torch.dtype, generator: torch.Generator | None):
         super().__init__()
-        kw = dict(device=device, generator=generator)
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.kind = kind
         self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
-        self.attn = attn_mod.Attention(cfg, **kw)
-        self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
-        self.ff = MLP(cfg.d_model, cfg.d_ff, **kw)
+        if kind.mixer == "attn":
+            self.attn = attn_mod.Attention(cfg, **kw)
+        else:
+            self.mamba = Mamba2(cfg, **kw)
+        if kind.ff is not None:
+            self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        if kind.ff == "dense":
+            self.ff = MLP(cfg.d_model, cfg.d_ff, **kw)
+        elif kind.ff == "moe":
+            self.moe = MoE(cfg, **kw)
+
+    def feed_forward(self, x: torch.Tensor,
+                     kernels: KernelSet = KERNELS) -> torch.Tensor:
+        """x + the layer's FF of norm2(x) (x itself when it has none)."""
+        if self.kind.ff == "dense":
+            return x + self.ff(self.norm2(x, kernels))
+        if self.kind.ff == "moe":
+            y, _ = self.moe(self.norm2(x, kernels), kernels)
+            return x + y
+        return x
 
 
 def _kv_to_ring(k: torch.Tensor, buf: int) -> torch.Tensor:
@@ -104,23 +138,28 @@ def _kv_to_ring(k: torch.Tensor, buf: int) -> torch.Tensor:
 
 
 class Transformer(nn.Module):
-    """The dense GQA sliding-window decoder (``h2o-danube-1.8b`` and the
-    other DENSE configs without M-RoPE)."""
+    """The decoder of the DENSE (``h2o-danube-1.8b`` and the other configs
+    without M-RoPE), SSM (``mamba2-780m``) and MOE (``qwen3-moe-30b-a3b``)
+    families. ``dtype`` is the weights' dtype (norm scales, the router and
+    the SSM's A/D/dt-bias stay float32)."""
 
     def __init__(self, cfg: ModelConfig, *, device: str | torch.device = "cuda",
+                 dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.family != Family.DENSE or cfg.is_encoder_decoder or cfg.mrope:
+        if (cfg.family not in _FAMILIES or cfg.is_encoder_decoder
+                or cfg.mrope):
             raise NotImplementedError(
-                f"{cfg.name}: only the DENSE family is ported so far")
+                f"{cfg.name}: only the DENSE, SSM and MOE families are "
+                "ported so far")
         kinds = layer_kinds(cfg)
-        assert all(k.mixer == "attn" and k.ff == "dense" for k in kinds)
         dev = resolve_device(device)
         self.cfg = cfg
-        kw = dict(device=dev, generator=generator)
+        kw = dict(device=dev, dtype=dtype, generator=generator)
         self.embed = embed_init(cfg.vocab_size, cfg.d_model, **kw)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, **kw) for _ in range(cfg.n_layers))
+            DecoderLayer(cfg, kinds[i % len(kinds)], **kw)
+            for i in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=dev)
         if not cfg.tie_embeddings:
             self.lm_head = dense_init(cfg.d_model, cfg.vocab_size, **kw)
@@ -142,10 +181,12 @@ class Transformer(nn.Module):
         positions = self._positions(tokens)
         x = F.embedding(tokens, self.embed)
         for layer in self.layers:
-            y, _, _ = attn_mod.attention(layer.attn, self.cfg, layer.norm1(x),
-                                         positions)
-            x = x + y
-            x = x + layer.ff(layer.norm2(x))
+            h = layer.norm1(x)
+            if layer.kind.mixer == "attn":
+                y, _, _ = attn_mod.attention(layer.attn, self.cfg, h, positions)
+            else:
+                y, _ = mamba_forward(layer.mamba, self.cfg, h)
+            x = layer.feed_forward(x + y)
         return self._logits(x)
 
     @torch.no_grad()
@@ -163,29 +204,36 @@ class Transformer(nn.Module):
         x = F.embedding(tokens, self.embed)
         caches = []
         for layer in self.layers:
-            y, k, v = attn_mod.attention(layer.attn, cfg,
-                                         layer.norm1(x, kernels), positions,
-                                         kernels)
-            x = x + y
-            caches.append(KVCache(k=_kv_to_ring(k.to(cache_dtype), kv_buf),
-                                  v=_kv_to_ring(v.to(cache_dtype), kv_buf),
-                                  length=S))
-            x = x + layer.ff(layer.norm2(x, kernels))
+            h = layer.norm1(x, kernels)
+            if layer.kind.mixer == "attn":
+                y, k, v = attn_mod.attention(layer.attn, cfg, h, positions,
+                                             kernels)
+                caches.append(KVCache(
+                    k=_kv_to_ring(k.to(cache_dtype), kv_buf),
+                    v=_kv_to_ring(v.to(cache_dtype), kv_buf), length=S))
+            else:
+                y, st = mamba_forward(layer.mamba, cfg, h, kernels=kernels)
+                caches.append(st)
+            x = layer.feed_forward(x + y, kernels)
         return self._logits(x, kernels), DecodeState(caches=caches, step=S)
 
     @torch.no_grad()
     def decode_step(self, state: DecodeState, tokens: torch.Tensor
                     ) -> tuple[torch.Tensor, DecodeState]:
         """One-token decode. tokens (B, 1) -> (logits (B, 1, V), new state).
-        The caches are updated in place (see ``decode_attention``)."""
+        KV caches are updated in place (see ``decode_attention``); SSM
+        states are replaced."""
         x = F.embedding(tokens, self.embed)
         caches = []
         for layer, cache in zip(self.layers, state.caches):
-            y, cache = attn_mod.decode_attention(layer.attn, self.cfg,
-                                                 layer.norm1(x), cache)
-            x = x + y
+            h = layer.norm1(x)
+            if layer.kind.mixer == "attn":
+                y, cache = attn_mod.decode_attention(layer.attn, self.cfg, h,
+                                                     cache)
+            else:
+                y, cache = mamba_decode_step(layer.mamba, self.cfg, h, cache)
             caches.append(cache)
-            x = x + layer.ff(layer.norm2(x))
+            x = layer.feed_forward(x + y)
         return self._logits(x), DecodeState(caches=caches, step=state.step + 1)
 
 
@@ -206,12 +254,14 @@ def load_jax_params(model: Transformer, params: dict) -> Transformer:
             p = model.get_parameter(name)
         except AttributeError:
             raise KeyError(f"reference leaf {name!r} has no parameter") from None
-        t = torch.tensor(np.asarray(leaf))
+        # through float32: numpy has no bfloat16 torch takes, and
+        # bfloat16 -> float32 -> bfloat16 is exact
+        t = torch.tensor(np.asarray(leaf, np.float32))
         if tuple(t.shape) != tuple(p.shape):
             raise ValueError(f"{name}: reference shape {tuple(t.shape)} != "
                              f"{tuple(p.shape)}")
         with torch.no_grad():
-            p.copy_(t)
+            p.copy_(t.to(p.dtype))
         assigned.add(name)
 
     def leaves(tree: dict, prefix: str = ""):

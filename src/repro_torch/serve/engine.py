@@ -2,10 +2,11 @@
 ``src/repro/serve/engine.py``).
 
 The router decides *where* a request runs, the engine *how*: ``prefill``
-materialises the ring KV caches and ``serve_step`` decodes one token for
-the whole batch. On CUDA the model always runs through the hand-written
-kernels (flash attention in prefill, RMSNorm everywhere); there is no
-switch to the plain versions.
+materialises the per-layer decode state (ring KV caches, SSM states) and
+``serve_step`` decodes one token for the whole batch. On CUDA the model
+always runs through the hand-written kernels (flash attention and the SSD
+scan in prefill, the grouped matmul in every MoE FF, RMSNorm everywhere);
+there is no switch to the plain versions.
 """
 
 from __future__ import annotations

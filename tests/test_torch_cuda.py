@@ -26,6 +26,15 @@ FLASH_CASES = [(2, 64, 4, 2, 32, None),
                (1, 200, 4, 4, 8, 1)]  # window 1: each row sees itself only
 NORM_SHAPES = [(4, 37, 96), (1, 8, 8, 64), (4, 2560), (2048, 2560),
                (3, 5, 1000)]
+SSD_CASES = [(2, 64, 8, 16, 16, 16, False),  # tests/test_kernels.py sweep
+             (1, 128, 16, 32, 32, 32, False),
+             (2, 96, 4, 8, 8, 24, False),
+             (1, 64, 8, 64, 128, 16, False),
+             (1, 32, 4, 8, 16, 8, True),  # from an initial state
+             (2, 100, 8, 64, 128, 32, True),  # ragged S
+             (1, 70, 4, 16, 16, 256, False)]  # S shorter than the chunk
+GMM_CASES = [(4, 32, 64, 48), (8, 16, 32, 32), (2, 128, 128, 128),
+             (16, 8, 16, 8), (3, 70, 100, 130), (8, 8, 2048, 768)]
 
 
 def _tol(name):
@@ -77,6 +86,94 @@ class TestCudaKernels:
         want = t_ref.rmsnorm_ref(x, s)
         np.testing.assert_allclose(out.float().cpu().numpy(),
                                    want.float().cpu().numpy(), **_tol(name))
+
+
+def _ssd_args(rng, b, s, h, p, n, name, device, init):
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(device)
+    bc = f(b, s, 1, 2 * n).to(TORCH_DTYPES[name])
+    return (f(b, s, h, p).to(TORCH_DTYPES[name]),
+            torch.nn.functional.softplus(f(b, s, h)), -torch.exp(f(h) * 0.5),
+            bc[..., :n], bc[..., n:], f(h), f(b, h, p, n) if init else None)
+
+
+@pytest.mark.cuda
+class TestCudaSlice2Kernels:
+    @pytest.mark.parametrize("name", list(TORCH_DTYPES))
+    @pytest.mark.parametrize("b,s,h,p,n,chunk,init", SSD_CASES)
+    def test_ssd_kernel_matches_plain(self, cuda, name, b, s, h, p, n, chunk,
+                                      init):
+        x, dt, A, Bm, Cm, D, s0 = _ssd_args(np.random.default_rng(s + n),
+                                            b, s, h, p, n, name, cuda, init)
+        before = t_ops.LAUNCHES["ssd_scan"]
+        y, sf = t_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk,
+                               initial_state=s0)
+        torch.cuda.synchronize()
+        assert t_ops.LAUNCHES["ssd_scan"] == before + 1
+        assert y.dtype == x.dtype and sf.dtype == torch.float32
+        yr, sr = t_ref.ssd_ref(x, dt, A, Bm, Cm, D, s0)
+        tol = 5e-2 if name == "bfloat16" else 5e-4
+        np.testing.assert_allclose(y.float().cpu().numpy(),
+                                   yr.float().cpu().numpy(), atol=tol, rtol=tol)
+        np.testing.assert_allclose(sf.cpu().numpy(), sr.cpu().numpy(),
+                                   atol=5e-3, rtol=5e-3)
+
+    @pytest.mark.parametrize("name", list(TORCH_DTYPES))
+    @pytest.mark.parametrize("e,c,d,f", GMM_CASES)
+    def test_gmm_kernel_matches_plain(self, cuda, name, e, c, d, f):
+        rng = np.random.default_rng(e + c + d + f)
+        x, w = _rand(rng, (e, c, d), name, cuda), _rand(rng, (e, d, f), name,
+                                                         cuda)
+        before = t_ops.LAUNCHES["grouped_matmul"]
+        out = t_ops.grouped_matmul(x, w)
+        torch.cuda.synchronize()
+        assert t_ops.LAUNCHES["grouped_matmul"] == before + 1
+        want = t_ref.grouped_matmul_ref(x, w)
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **_tol(name))
+
+    def test_refusals(self, cuda):
+        """A CPU tensor among CUDA ones, meta tensors and wrong dtypes are
+        refused; nothing is launched and nothing falls back."""
+        rng = np.random.default_rng(0)
+        args = list(_ssd_args(rng, 1, 16, 2, 8, 8, "float32", cuda, True))
+        x = _rand(rng, (2, 8, 16), "float32", cuda)
+        w = _rand(rng, (2, 16, 4), "float32", cuda)
+        before = dict(t_ops.LAUNCHES)
+        for i in range(7):  # each argument in turn on the CPU
+            bad = list(args)
+            bad[i] = bad[i].cpu()
+            with pytest.raises(ValueError, match="CUDA"):
+                t_ops.ssd_scan(*bad[:6], chunk=8, initial_state=bad[6])
+        with pytest.raises(ValueError, match="CUDA"):
+            t_ops.grouped_matmul(x, w.cpu())
+        with pytest.raises(ValueError, match="CUDA"):
+            t_ops.grouped_matmul(x.to("meta"), w.to("meta"))
+        with pytest.raises(TypeError):
+            t_ops.grouped_matmul(x.double(), w.double())
+        with pytest.raises(TypeError):
+            t_ops.grouped_matmul(x.bfloat16(), w)
+        with pytest.raises(TypeError):  # dt must be float32
+            t_ops.ssd_scan(args[0], args[1].double(), *args[2:6], chunk=8)
+        with pytest.raises(TypeError):  # B and C in x's dtype
+            t_ops.ssd_scan(args[0], args[1], args[2], args[3].bfloat16(),
+                           args[4], args[5], chunk=8)
+        with pytest.raises(ValueError):  # P over the kernel's limit
+            t_ops.ssd_scan(*_ssd_args(rng, 1, 8, 1, 65, 8, "float32", cuda,
+                                      False)[:6])
+        assert t_ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_launcher_refuses_float32_qwen3_moe(cuda):
+    """qwen3-moe-30b-a3b in float32 needs 122 GB: the launcher says so
+    before it allocates anything."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    with pytest.raises(ValueError, match="GB"):
+        serve.check_fits(get_config("qwen3-moe-30b-a3b"), torch.float32, cuda)
+    serve.check_fits(get_config("qwen3-moe-30b-a3b"), torch.bfloat16, cuda)
 
 
 @pytest.mark.cuda

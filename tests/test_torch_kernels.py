@@ -5,7 +5,7 @@ the jnp oracles and the Pallas kernels in interpret mode (flash attention:
 interpret mode in float32, where the bfloat16 kernel is already held to the
 oracle by ``tests/test_kernels.py``), on the ``tests/test_kernels.py``
 sweep plus S=96 and D=80 with a window, at the same bars (5e-4 f32, 2e-2
-bf16). The CUDA kernels themselves run only on the card:
+bf16; the SSD state at 5e-3, or 5e-4 from an initial state, as there). The CUDA kernels themselves run only on the card:
 ``tests/test_torch_cuda.py`` holds them against the plain versions there."""
 
 import numpy as np
@@ -32,6 +32,12 @@ FLASH_CASES = [(2, 64, 4, 2, 32, None),
                (2, 96, 4, 2, 16, 32),  # ragged S=96 at the smoke head_dim
                (1, 96, 4, 1, 80, 40)]  # the danube head_dim with a window
 NORM_SHAPES = [(4, 37, 96), (1, 8, 8, 64)]
+SSD_CASES = [(2, 64, 8, 16, 16, 16, 4),  # tests/test_kernels.py sweep
+             (1, 128, 16, 32, 32, 32, 8),
+             (2, 96, 4, 8, 8, 24, 4),
+             (1, 64, 8, 64, 128, 16, 8)]
+GMM_CASES = [(4, 32, 64, 48), (8, 16, 32, 32), (2, 128, 128, 128),
+             (16, 8, 16, 8)]
 
 
 def _tol(name):
@@ -98,6 +104,87 @@ class TestRMSNormPlain:
         assert t_ops.LAUNCHES == counts
 
 
+def _ssd_inputs(rng, b, s, h, p, n, init=False):
+    """numpy inputs of the SSD scan, drawn as tests/test_kernels.py draws
+    them (softplus dt, A = -exp(0.5 z), one B/C group)."""
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    out = dict(x=f(b, s, h, p), dt=np.logaddexp(0.0, f(b, s, h)),
+               A=-np.exp(f(h) * 0.5), B=f(b, s, 1, n), C=f(b, s, 1, n),
+               D=f(h))
+    out = {k: v.astype(np.float32) for k, v in out.items()}
+    out["s0"] = f(b, h, p, n) if init else None
+    return out
+
+
+class TestSSDScanPlain:
+    @pytest.mark.parametrize("b,s,h,p,n,chunk,block_h", SSD_CASES)
+    def test_against_pallas_and_oracle(self, b, s, h, p, n, chunk, block_h,
+                                       counts):
+        a = _ssd_inputs(np.random.default_rng(s + n), b, s, h, p, n)
+        args = [a[k] for k in ("x", "dt", "A", "B", "C", "D")]
+        y, sf = t_ops.ssd_scan(*map(torch.from_numpy, args), chunk=chunk)
+        assert y.dtype == torch.float32 and y.shape == (b, s, h, p)
+        assert sf.dtype == torch.float32 and sf.shape == (b, h, p, n)
+        jargs = list(map(jnp.asarray, args))
+        yp, sp = r_ops.ssd_scan(*jargs, chunk=chunk, block_h=block_h,
+                                interpret=True)
+        yr, sr = r_ref.ssd_ref(*jargs)
+        for want_y, want_s in ((yp, sp), (yr, sr)):
+            np.testing.assert_allclose(_f32(y), _f32(want_y), **_tol("float32"))
+            np.testing.assert_allclose(_f32(sf), _f32(want_s), atol=5e-3,
+                                       rtol=5e-3)
+        assert t_ops.LAUNCHES == counts
+
+    def test_initial_state(self, counts):
+        """tests/test_kernels.py's initial-state case (chunk 8 of S=32)."""
+        a = _ssd_inputs(np.random.default_rng(7), 1, 32, 4, 8, 16, init=True)
+        args = [a[k] for k in ("x", "dt", "A", "B", "C", "D")]
+        y, sf = t_ops.ssd_scan(*map(torch.from_numpy, args), chunk=8,
+                               initial_state=torch.from_numpy(a["s0"]))
+        jargs = list(map(jnp.asarray, args))
+        s0 = jnp.asarray(a["s0"])
+        for want_y, want_s in (r_ops.ssd_scan(*jargs, chunk=8, initial_state=s0,
+                                              interpret=True),
+                               r_ref.ssd_ref(*jargs, initial_state=s0)):
+            np.testing.assert_allclose(_f32(y), _f32(want_y), **_tol("float32"))
+            np.testing.assert_allclose(_f32(sf), _f32(want_s), **_tol("float32"))
+        assert t_ops.LAUNCHES == counts
+
+    def test_bfloat16_keeps_dtypes(self):
+        a = _ssd_inputs(np.random.default_rng(3), 1, 24, 4, 8, 8)
+        t = {k: torch.from_numpy(v) for k, v in a.items() if v is not None}
+        bf = {k: t[k].bfloat16() for k in ("x", "B", "C")}
+        y, sf = t_ops.ssd_scan(bf["x"], t["dt"], t["A"], bf["B"], bf["C"],
+                               t["D"], chunk=8)
+        assert y.dtype == torch.bfloat16 and sf.dtype == torch.float32
+        yr, sr = r_ref.ssd_ref(*(jnp.asarray(np.asarray(v.float()), dt)
+                                 for v, dt in ((bf["x"], jnp.bfloat16),
+                                               (t["dt"], jnp.float32),
+                                               (t["A"], jnp.float32),
+                                               (bf["B"], jnp.bfloat16),
+                                               (bf["C"], jnp.bfloat16),
+                                               (t["D"], jnp.float32))))
+        np.testing.assert_allclose(_f32(y), _f32(yr), atol=5e-2, rtol=5e-2)
+        np.testing.assert_allclose(_f32(sf), _f32(sr), atol=5e-3, rtol=5e-3)
+
+
+class TestGroupedMatmulPlain:
+    @pytest.mark.parametrize("name", list(DTYPES))
+    @pytest.mark.parametrize("e,c,d,f", GMM_CASES)
+    def test_against_pallas_and_oracle(self, name, e, c, d, f, counts):
+        rng = np.random.default_rng(e * c + d + f)
+        xj, xt = _pair(rng, (e, c, d), name)
+        wj, wt = _pair(rng, (e, d, f), name)
+        out = t_ops.grouped_matmul(xt, wt)
+        assert out.dtype == xt.dtype and out.shape == (e, c, f)
+        pallas = r_ops.grouped_matmul(xj, wj, block_c=16, block_f=16,
+                                      block_d=16, interpret=True)
+        oracle = r_ref.grouped_matmul_ref(xj, wj)
+        np.testing.assert_allclose(_f32(out), _f32(pallas), **_tol(name))
+        np.testing.assert_allclose(_f32(out), _f32(oracle), **_tol(name))
+        assert t_ops.LAUNCHES == counts
+
+
 class TestWrappers:
     def test_non_cpu_tensor_never_takes_the_plain_version(self, counts):
         """A tensor off the CPU launches the kernel or raises; meta tensors
@@ -109,18 +196,37 @@ class TestWrappers:
         with pytest.raises(ValueError, match="CUDA"):
             t_ops.fused_rmsnorm(torch.empty((4, 16), device="meta"),
                                 torch.empty((16,), device="meta"))
+        meta = lambda *shape: torch.empty(shape, device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            t_ops.ssd_scan(meta(1, 8, 2, 4), meta(1, 8, 2), meta(2),
+                           meta(1, 8, 1, 4), meta(1, 8, 1, 4), meta(2))
+        with pytest.raises(ValueError, match="CUDA"):
+            t_ops.ssd_scan(*(torch.zeros(s) for s in ((1, 8, 2, 4), (1, 8, 2),
+                                                      (2,), (1, 8, 1, 4),
+                                                      (1, 8, 1, 4), (2,))),
+                           initial_state=meta(1, 2, 4, 4))
+        with pytest.raises(ValueError, match="CUDA"):
+            t_ops.grouped_matmul(meta(2, 4, 8), meta(2, 8, 3))
         assert t_ops.LAUNCHES == counts
 
     def test_kernel_sets(self):
         assert t_ops.KERNELS.flash_attention is t_ops.flash_attention
         assert t_ops.KERNELS.rmsnorm is t_ops.fused_rmsnorm
+        assert t_ops.KERNELS.ssd_scan is t_ops.ssd_scan
+        assert t_ops.KERNELS.grouped_matmul is t_ops.grouped_matmul
         assert t_ops.PLAIN.flash_attention is t_ref.flash_attention_ref
         assert t_ops.PLAIN.rmsnorm is t_ref.rmsnorm_ref
+        assert t_ops.PLAIN.ssd_scan is t_ref.ssd_ref
+        assert t_ops.PLAIN.grouped_matmul is t_ref.grouped_matmul_ref
+        assert set(t_ops.LAUNCHES) == {"flash_attention", "fused_rmsnorm",
+                                       "ssd_scan", "grouped_matmul"}
 
     def test_build_sources_and_location(self):
         names = sorted(p.name for p in t_build._sources())
-        assert names == ["flash_attention.cu", "rmsnorm.cu"]
-        assert set(t_build.SIGNATURES) == {"gs_flash_attention", "gs_rmsnorm"}
+        assert names == ["flash_attention.cu", "grouped_matmul.cu",
+                         "rmsnorm.cu", "ssd_scan.cu"]
+        assert set(t_build.SIGNATURES) == {"gs_flash_attention", "gs_rmsnorm",
+                                           "gs_ssd_scan", "gs_grouped_matmul"}
         repo = t_build.CSRC.parents[3]
         assert t_build.build_dir() == repo / "build" / "repro_torch"
         assert (repo / "chip_smoke.py").is_file()

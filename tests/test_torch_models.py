@@ -1,8 +1,11 @@
-"""The port's execute half against the JAX reference on the smoke config
-``h2o-danube-1.8b-smoke`` (head_dim 16, window 16): params from the
-reference ``init_params``, converted with ``load_jax_params``; tokens from
-numpy. Forward, prefill (logits and ring caches) and decode past the window
-wrap within 5e-4 (bf16 cache: the ``tests/test_models.py`` decode bar),
+"""The port's execute half against the JAX reference on the smoke configs
+``h2o-danube-1.8b-smoke`` (head_dim 16, window 16), ``mamba2-780m-smoke``
+and ``qwen3-moe-30b-a3b-smoke``: params from the reference
+``init_params``, converted with ``load_jax_params`` (also from the default
+bfloat16, bit for bit); tokens from numpy. Forward, prefill (logits and
+ring caches / SSM states) and decode (past the window wrap for danube)
+within 5e-4 (bf16 cache: the ``tests/test_models.py`` decode bar),
+prefill-then-decode equal to the full forward at the reference's own bars,
 greedy tokens identical, and the launcher end to end on the CPU."""
 
 import numpy as np
@@ -60,7 +63,42 @@ def _np(t):
     return t.detach().float().cpu().numpy()
 
 
+def _dense(model, name):
+    return next(p for n, p in model.named_parameters() if n == name)
+
+
 class TestLoadParams:
+    @pytest.mark.parametrize("arch", [ARCH, "mamba2-780m", "qwen3-moe-30b-a3b"])
+    def test_default_bfloat16_params_convert_bit_for_bit(self, arch):
+        """``init_params`` in the config's own dtype (bfloat16) converts
+        into a bfloat16 model; every parameter equals its reference leaf
+        bit for bit (float32 leaves stay float32)."""
+        cfg = r_get_config(arch, smoke=True)
+        assert cfg.dtype == "bfloat16"
+        params = r_tf.init_params(jax.random.PRNGKey(1), cfg)
+        model = Transformer(get_config(arch, smoke=True), device=CPU,
+                            dtype=torch.bfloat16)
+        load_jax_params(model, jax.tree.map(np.asarray, params))
+        period = r_tf.block_period(cfg)
+        want = {}
+        for path, leaf in jax.tree_util.tree_leaves_with_path(params):
+            keys = [getattr(k, "key", getattr(k, "idx", None)) for k in path]
+            if keys[0] == "blocks":
+                for s_ in range(leaf.shape[0]):
+                    name = ".".join(map(str, ["layers", s_ * period + keys[1]]
+                                        + keys[2:]))
+                    want[name] = leaf[s_]
+            else:
+                want[".".join(map(str, keys))] = leaf
+        assert set(want) == {n for n, _ in model.named_parameters()}
+        for name, leaf in want.items():
+            p = _dense(model, name)
+            assert str(p.dtype)[6:] == str(leaf.dtype), name
+            got = p.detach().view(torch.int16 if p.dtype == torch.bfloat16
+                                  else torch.int32).numpy()
+            np.testing.assert_array_equal(
+                got, np.asarray(leaf).view(got.dtype), err_msg=name)
+
     def test_every_leaf_is_loaded(self, pair):
         cfg, params, model = pair
         leaves = jax.tree.leaves(params)
@@ -229,10 +267,121 @@ def test_entry_point_without_device_raises_on_cpu_host(name):
 
 
 def test_other_families_not_ported():
-    for arch in ("mamba2-780m", "qwen3-moe-30b-a3b", "whisper-base",
-                 "qwen2-vl-7b"):
+    for arch in ("jamba-v0.1-52b", "whisper-base", "qwen2-vl-7b"):
         with pytest.raises(NotImplementedError):
             Transformer(get_config(arch, smoke=True), device=CPU)
+
+
+NEW_ARCHS = ["mamba2-780m", "qwen3-moe-30b-a3b"]
+
+
+@pytest.fixture(scope="module", params=NEW_ARCHS)
+def new_pair(request):
+    """(cfg, reference params, port model) for the SSM and MoE smoke
+    configs, in float32."""
+    arch = request.param
+    cfg = r_get_config(arch, smoke=True)
+    params = jax.jit(r_tf.init_params, static_argnums=1,
+                     static_argnames="dtype")(jax.random.PRNGKey(0), cfg,
+                                              dtype=jnp.float32)
+    model = Transformer(get_config(arch, smoke=True), device=CPU)
+    load_jax_params(model, jax.tree.map(np.asarray, params))
+    return cfg, params, model
+
+
+class TestNewFamiliesSlice:
+    """The SSM and MoE families of this slice, module by module stacked:
+    forward, prefill (logits and per-layer state), decode, greedy serving
+    and the launcher, against the reference."""
+
+    def test_layer_kinds_and_param_count(self, new_pair):
+        cfg, params, model = new_pair
+        kinds = {(l.kind.mixer, l.kind.ff) for l in model.layers}
+        assert kinds == ({("mamba", None)} if cfg.family.value == "ssm"
+                         else {("attn", "moe")})
+        assert sum(p.numel() for p in model.parameters()) == \
+            cfg.param_count() == sum(int(np.prod(l.shape))
+                                     for l in jax.tree.leaves(params))
+
+    @pytest.mark.parametrize("use_pallas", [False, True])
+    def test_forward_logits(self, new_pair, use_pallas):
+        cfg, params, model = new_pair
+        toks = _tokens((2, 24), seed=21)  # S=24: mamba pads to its chunk 16
+        want, _ = _r_forward(params, cfg, jnp.asarray(toks),
+                             use_pallas=use_pallas)
+        got = model(torch.from_numpy(toks))
+        np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+
+    def test_prefill_state_and_decode(self, new_pair):
+        cfg, params, model = new_pair
+        toks = _tokens((2, 20), seed=22)
+        want, r_state = _r_prefill(params, cfg, jnp.asarray(toks[:, :16]),
+                                   max_seq=32, cache_dtype=jnp.float32,
+                                   use_pallas=True)
+        got, state = model.prefill(torch.from_numpy(toks[:, :16]), max_seq=32,
+                                   cache_dtype=torch.float32)
+        np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+        assert state.step == int(r_state.step) == 16
+        for i, cache in enumerate(state.caches):
+            r_cache = r_state.caches[0]
+            fields = (("ssm", "conv_x", "conv_bc")
+                      if model.layers[i].kind.mixer == "mamba" else ("k", "v"))
+            for f in fields:
+                np.testing.assert_allclose(
+                    _np(getattr(cache, f)), np.asarray(getattr(r_cache, f)[i]),
+                    **TOL, err_msg=f"layer {i} {f}")
+        for pos in range(16, 20):
+            step = toks[:, pos:pos + 1]
+            want, r_state = _r_decode(params, cfg, r_state, jnp.asarray(step))
+            got, state = model.decode_step(state, torch.from_numpy(step))
+            np.testing.assert_allclose(_np(got), np.asarray(want), **TOL,
+                                       err_msg=f"position {pos}")
+        assert state.step == 20
+
+    def test_prefill_then_decode_equals_forward(self, new_pair):
+        """tests/test_models.py:85-92, on the port alone."""
+        cfg, params, model = new_pair
+        toks = torch.from_numpy(_tokens((2, 17), seed=23))
+        full = model(toks)
+        logits_S, state = model.prefill(toks[:, :16], max_seq=32,
+                                        cache_dtype=torch.float32)
+        np.testing.assert_allclose(_np(logits_S[:, -1]), _np(full[:, 15]),
+                                   atol=2e-3, rtol=1e-3)
+        dec, _ = model.decode_step(state, toks[:, 16:17])
+        np.testing.assert_allclose(_np(dec[:, 0]), _np(full[:, 16]),
+                                   atol=5e-3, rtol=1e-2)
+
+    def test_greedy_generate_tokens_identical(self, new_pair):
+        cfg, params, model = new_pair
+        toks = _tokens((3, 20), seed=24)
+        want = RServeEngine(cfg, params, max_seq=40, use_pallas=True).generate(
+            jnp.asarray(toks), max_new_tokens=12)
+        got = ServeEngine(get_config(cfg.name.removesuffix("-smoke"),
+                                     smoke=True), model, max_seq=40,
+                          device=CPU).generate(torch.from_numpy(toks),
+                                               max_new_tokens=12)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    @pytest.mark.parametrize("arch", NEW_ARCHS)
+    def test_launcher_main_on_cpu(self, arch, capsys):
+        run = t_serve.main(["--arch", arch, "--device", "cpu",
+                            "--prompt-len", "10", "--new-tokens", "4"])
+        assert run.cfg.name == f"{arch}-smoke"
+        assert run.tokens.shape == (4, 4)
+        assert 0 <= int(run.tokens.min()) <= int(run.tokens.max()) \
+            < run.cfg.vocab_size
+        assert f"{arch}-smoke" in capsys.readouterr().out
+
+    def test_launcher_bfloat16_and_fit_check(self):
+        assert t_serve.parse_args(["--arch", ARCH]).dtype == "float32"
+        run = t_serve.main(["--arch", "qwen3-moe-30b-a3b", "--device", "cpu",
+                            "--dtype", "bfloat16", "--prompt-len", "8",
+                            "--new-tokens", "3"])
+        assert run.engine.model.layers[0].moe.w_up.dtype == torch.bfloat16
+        assert run.engine.model.layers[0].moe.router.dtype == torch.float32
+        full = get_config("qwen3-moe-30b-a3b")
+        assert full.param_count() * 4 > 100e9  # f32 cannot fit one card
+        t_serve.check_fits(full, torch.float32, torch.device("cpu"))  # no card
 
 
 def test_dense_config_with_qkv_bias_runs():
