@@ -12,15 +12,17 @@ Phases (any failure ends the script with a non-zero exit):
 
 1. Build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc, one
    process per source, all started together) and print the build time and
-   ptxas' resource lines.
+   one line per kernel with its registers and spill bytes (ptxas).
 2. Hold each kernel against its plain PyTorch version on the card, and
    time kernel, plain version and one PyTorch library call (where one
    computes the same function) with CUDA events, the L2 cache flushed
    before every launch: flash attention (danube f32/bf16, a window, ragged
-   S=96, qwen3's D=128 bf16), RMSNorm (prefill, decode and odd widths),
-   the SSD scan (mamba2-780m's prefill, the reference sweep in f32 and
-   bf16, ragged S, an initial state) and the grouped matmul (qwen3's
-   prefill and decode shapes in bf16 and f32, the reference sweep).
+   S=96, qwen3's D=128 bf16; timed: danube f32 and bf16, qwen3 bf16),
+   RMSNorm (prefill, decode and odd widths), the SSD scan (mamba2-780m's
+   prefill, the reference sweep in f32 and bf16, ragged S, an initial
+   state) and the grouped matmul (qwen3's prefill and decode shapes in
+   bf16 and f32, the reference sweep; timed: the four bf16 prefill and
+   decode gate/up and down shapes).
    Tolerances are those of tests/test_kernels.py.
 3. Drive the three served paths through ``repro_torch.launch.serve.main``,
    each at full width, routing one request and generating (4, 16) tokens
@@ -47,6 +49,7 @@ device or without the repository beside this file.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -75,6 +78,35 @@ def check(cond: bool, msg: str) -> None:
 
 def dtype_name(dtype) -> str:
     return str(dtype).split(".")[1]
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel from nvcc's ``-Xptxas -v`` output:
+    the kernel (demangled where c++filt exists), its registers and its
+    spill bytes; source headers (``== file``) kept."""
+    out, kernels, name, spill = [], [], None, "?"
+    for line in log.splitlines():
+        if line.startswith("=="):
+            out.append(line)
+        elif m := re.search(r"Compiling entry function '([^']+)'", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            kernels.append(name)
+            out.append((len(kernels) - 1, f"{m.group(1)} registers, {spill}"))
+            name, spill = None, "?"
+    try:
+        demangled = subprocess.run(["c++filt"], input="\n".join(kernels),
+                                   capture_output=True, text=True,
+                                   check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        demangled = kernels
+    short = [re.sub(r"^void |\(anonymous namespace\)::|\(.*\)$", "", k)
+             for k in demangled]
+    return [x if isinstance(x, str) else f"{short[x[0]]}: {x[1]}"
+            for x in out]
 
 
 def profile_path(torch, engine, prompt, label: str) -> None:
@@ -142,9 +174,8 @@ def main() -> None:
     info = build.build()
     print(f"[build] {info.path.name}: {info.seconds:.1f} s"
           f"{' (cached)' if info.cached else ''}")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print(f"[build]   {line.strip()}")
+    for line in ptxas_summary(info.log):
+        print(f"[build]   {line}")
     build.library()
 
     # --- phase 2: kernels against their plain versions ------------------------
@@ -210,7 +241,7 @@ def main() -> None:
                       ref.flash_attention_ref(q, k, v, causal=True,
                                               window=window),
                       TOL[dtype_name(dtype)])
-        if label not in ("main f32", "qwen3 bf16"):
+        if label not in ("main f32", "main bf16", "qwen3 bf16"):
             continue
         pos = torch.arange(S)
         pairs = int((pos[None, :] <= pos[:, None]).sum())  # visible (q, k)
@@ -344,8 +375,7 @@ def main() -> None:
         err = compare(f"grouped_matmul {label} {(E, C, d)}@{(E, d, f)} "
                       f"{dtype_name(dtype)}", ops.grouped_matmul(x, w),
                       ref.grouped_matmul_ref(x, w), TOL[dtype_name(dtype)])
-        if dtype != torch.bfloat16 or label not in ("prefill gate/up",
-                                                    "decode gate/up"):
+        if dtype != torch.bfloat16 or label == "sweep":
             continue
         r = timed("grouped_matmul",
                   f"{(E, C, d)}@{(E, d, f)} {dtype_name(dtype)}", err,
@@ -365,7 +395,7 @@ def main() -> None:
 
     def show(r):
         lib = "no single call" if r["library_ms"] is None else \
-            f"{r['library_ms']:.4f} ms"
+            f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x)"
         print(f"[time] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {lib}, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")

@@ -1,12 +1,18 @@
 // Shared helpers of the port's CUDA kernels: loads and stores of the two
 // element types the kernels take (float32 and bfloat16), with all math in
-// float32.
+// float32, and the host-side alignment check of 16-byte vector paths.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace gs {
+
+// Host side: whether a pointer allows 16-byte vector access.
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
 
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
 

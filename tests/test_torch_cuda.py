@@ -165,6 +165,67 @@ class TestCudaSlice2Kernels:
 
 
 @pytest.mark.cuda
+class TestCudaTilingEdges:
+    """The edges of the tensor-core tilings: C against the N tile (8 to
+    256 wide, tiled over the grid above 256), d and f off the 16-byte
+    rows (element-wise tile loads), D padded to a multiple of 16, ragged
+    q tiles, windows and every GQA grouping. Both dtypes; each call adds
+    one launch."""
+
+    @pytest.mark.parametrize("name", list(TORCH_DTYPES))
+    @pytest.mark.parametrize("f", [8, 130, 768])
+    @pytest.mark.parametrize("d", [16, 100, 2048])
+    @pytest.mark.parametrize("c", [1, 7, 9, 65, 160, 257])
+    def test_gmm_tiles(self, cuda, name, c, d, f):
+        rng = np.random.default_rng(c * 10007 + d * 101 + f)
+        x, w = _rand(rng, (2, c, d), name, cuda), _rand(rng, (2, d, f), name,
+                                                         cuda)
+        before = t_ops.LAUNCHES["grouped_matmul"]
+        out = t_ops.grouped_matmul(x, w)
+        torch.cuda.synchronize()
+        assert t_ops.LAUNCHES["grouped_matmul"] == before + 1
+        assert out.dtype == x.dtype and tuple(out.shape) == (2, c, f)
+        want = t_ref.grouped_matmul_ref(x, w)
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **_tol(name))
+
+    @pytest.mark.parametrize("name", list(TORCH_DTYPES))
+    @pytest.mark.parametrize("hkv", [1, 4, 8])
+    @pytest.mark.parametrize("window", [None, 24])
+    @pytest.mark.parametrize("s", [1, 63, 65, 512])
+    @pytest.mark.parametrize("d", [16, 80, 96, 128])
+    def test_flash_tiles(self, cuda, name, d, s, window, hkv):
+        rng = np.random.default_rng(d * 1009 + s * 7 + hkv)
+        q, k, v = (_rand(rng, (2, s, h, d), name, cuda)
+                   for h in (8, hkv, hkv))
+        before = t_ops.LAUNCHES["flash_attention"]
+        out = t_ops.flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        assert t_ops.LAUNCHES["flash_attention"] == before + 1
+        assert out.dtype == q.dtype and out.shape == q.shape
+        want = t_ref.flash_attention_ref(q, k, v, causal=True, window=window)
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **_tol(name))
+
+    @pytest.mark.parametrize("name", list(TORCH_DTYPES))
+    def test_flash_strided_and_misaligned_views(self, cuda, name):
+        """q/k/v as views of one wider tensor (strides, no copies); k/v
+        starting 2 elements in, off the 16-byte rows (element-wise
+        loads)."""
+        rng = np.random.default_rng(5)
+        big = _rand(rng, (2, 70, 4, 100), name, cuda)
+        q = big[..., :32]
+        for lo in (32, 34):
+            k, v = big[:, :, :2, lo:lo + 32], big[:, :, :2, lo + 32:lo + 64]
+            out = t_ops.flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            want = t_ref.flash_attention_ref(q, k, v, causal=True)
+            np.testing.assert_allclose(out.float().cpu().numpy(),
+                                       want.float().cpu().numpy(),
+                                       **_tol(name))
+
+
+@pytest.mark.cuda
 def test_launcher_refuses_float32_qwen3_moe(cuda):
     """qwen3-moe-30b-a3b in float32 needs 122 GB: the launcher says so
     before it allocates anything."""

@@ -230,3 +230,52 @@ class TestWrappers:
         repo = t_build.CSRC.parents[3]
         assert t_build.build_dir() == repo / "build" / "repro_torch"
         assert (repo / "chip_smoke.py").is_file()
+
+    def test_build_digest_covers_the_shared_headers(self, tmp_path,
+                                                    monkeypatch):
+        """The kernels include ``common.cuh`` and ``tensor_core.cuh``: an
+        edit to a header names a new library, so a stale build is never
+        reused; the headers are included, not compiled on their own."""
+        csrc = tmp_path / "csrc"
+        csrc.mkdir()
+        for p in t_build.CSRC.iterdir():
+            (csrc / p.name).write_bytes(p.read_bytes())
+        monkeypatch.setattr(t_build, "CSRC", csrc)
+        assert {"common.cuh", "tensor_core.cuh"} <= {
+            p.name for p in csrc.glob("*.cuh")}
+        assert all(p.suffix == ".cu" for p in t_build._sources())
+        before = t_build._digest("nvcc")
+        header = csrc / "tensor_core.cuh"
+        header.write_text(header.read_text() + "\n// edited\n")
+        assert t_build._digest("nvcc") != before
+
+
+def test_chip_smoke_names_each_kernel_with_its_spills():
+    """``chip_smoke.py`` turns nvcc's ``-Xptxas -v`` log into one
+    ``[build]`` line per kernel, so a spill is tied to the kernel that
+    spilled."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", t_build.CSRC.parents[3] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    entry = "_ZN12_GLOBAL__N_114flash_fwd_bf16ILi128ELb1EEEvNS_6ParamsE"
+    log = "\n".join([
+        "== flash_attention.cu",
+        f"ptxas info    : Compiling entry function '{entry}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {entry}",
+        "    8 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_Z3fooi' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z3fooi",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 32 registers, used 1 barriers",
+        "== link"])
+    lines = smoke.ptxas_summary(log)
+    assert lines[0] == "== flash_attention.cu" and lines[-1] == "== link"
+    assert len(lines) == 4
+    assert lines[1].endswith(": 128 registers, spill stores 16 B, loads 12 B")
+    assert lines[2].endswith(": 32 registers, spill stores 0 B, loads 0 B")
+    # demangled where c++filt is installed, the mangled name otherwise
+    assert ("flash_fwd_bf16<128, true>" in lines[1]) or (entry in lines[1])
