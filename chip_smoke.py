@@ -6,7 +6,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py [--profile]
 
 ``--profile`` adds a torch.profiler breakdown of device time by kernel
-over one warm prefill and the decode steps of each served path.
+over one warm prefill and the decode steps of each served path (the top
+kernels, and every SSD sub-kernel by name).
 
 Phases (any failure ends the script with a non-zero exit):
 
@@ -18,9 +19,11 @@ Phases (any failure ends the script with a non-zero exit):
    computes the same function) with CUDA events, the L2 cache flushed
    before every launch: flash attention (danube f32/bf16, a window, ragged
    S=96, qwen3's D=128 bf16; timed: danube f32 and bf16, qwen3 bf16),
-   RMSNorm (prefill, decode and odd widths), the SSD scan (mamba2-780m's
+   RMSNorm (prefill, decode and odd widths; timed: every served prefill
+   shape and one decode shape, ``NORM_TIMED``), the SSD scan (mamba2-780m's
    prefill, the reference sweep in f32 and bf16, ragged S, an initial
-   state) and the grouped matmul (qwen3's prefill and decode shapes in
+   state; timed: the prefill and a 4096-token prompt, ``SSD_TIMED``) and
+   the grouped matmul (qwen3's prefill and decode shapes in
    bf16 and f32, the reference sweep; timed: the four bf16 prefill and
    decode gate/up and down shapes).
    Tolerances are those of tests/test_kernels.py.
@@ -64,6 +67,17 @@ SSD_STATE_TOL = 5e-3
 LOGITS_TOL = 2e-3  # kernels vs plain versions through 24-48 f32 layers
 BATCH, PROMPT, NEW = 4, 512, 16
 DANUBE, MAMBA, QWEN3 = "h2o-danube-1.8b", "mamba2-780m", "qwen3-moe-30b-a3b"
+# Timed RMSNorm shapes: (2048, 2560) f32 is the kernels line's own row;
+# the others are the remaining served prefill shapes (mamba2 f32 d_model
+# and gated d_inner, qwen3 bf16) and one decode shape.
+NORM_TIMED = [((2048, 2560), "float32"), ((2048, 1536), "float32"),
+              ((2048, 3072), "float32"), ((2048, 2048), "bfloat16"),
+              ((4, 2560), "float32")]
+# Timed SSD scans (label, B, S, H, P, N, chunk), f32, mamba2-780m's A and
+# dt: the served prefill (the kernels line's own row) and a long prompt,
+# whose 64 chunks show the chunk parallelism that S = 512 hides.
+SSD_TIMED = [("main", BATCH, PROMPT, 48, 64, 128, 256),
+             ("long prompt", 1, 4096, 48, 64, 128, 256)]
 
 
 def fail(msg: str) -> None:
@@ -124,9 +138,10 @@ def profile_path(torch, engine, prompt, label: str) -> None:
         busy = sum(r[0] for r in rows)
         print(f"[profile] {label} {part}: wall {wall_us / 1e3:.1f} ms, kernels "
               f"{busy / 1e3:.1f} ms ({busy / wall_us:.1%} busy)")
-        for us, count, key in rows[:12]:
-            print(f"[profile]   {us / 1e3:9.3f} ms {us / busy:6.1%} "
-                  f"x{count:<5} {key[:90]}")
+        for k, (us, count, key) in enumerate(rows):
+            if k < 12 or "ssd_" in key:  # the top, and each SSD sub-kernel
+                print(f"[profile]   {us / 1e3:9.3f} ms {us / busy:6.1%} "
+                      f"x{count:<5} {key[:90]}")
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch_profile(activities=acts) as prof:
@@ -217,12 +232,19 @@ def main() -> None:
     results = {}
 
     def timed(name, shape, err, fn, plain, library, nbytes, flops, dtype,
-              plain_reps=20):
+              plain_reps=20, plain_warmup=3, copy=None):
+        """Kernel, plain and library times, the bound, and for a kernel
+        bound by bytes optionally ``copy_ms``: a device-to-device copy of
+        the same bytes, timed the same way, as what this timing can reach."""
         b_ms, b_by = bound(nbytes, flops, dtype)
-        return dict(name=name, shape=shape, max_abs_err=err, ms=time_ms(fn),
-                    plain_ms=time_ms(plain, reps=plain_reps),
-                    bound_ms=b_ms, bound_by=b_by,
-                    library_ms=None if library is None else time_ms(library))
+        r = dict(name=name, shape=shape, max_abs_err=err, ms=time_ms(fn),
+                 plain_ms=time_ms(plain, reps=plain_reps,
+                                  warmup=plain_warmup),
+                 bound_ms=b_ms, bound_by=b_by,
+                 library_ms=None if library is None else time_ms(library))
+        if copy is not None:
+            r["copy_ms"] = time_ms(copy)
+        return r
 
     # flash attention
     flash_cases = [  # (label, B, S, H, Hkv, D, window, dtype)
@@ -272,23 +294,31 @@ def main() -> None:
                   ((2048, 2048), torch.bfloat16), ((4, 2048), torch.bfloat16),
                   ((2048, 1536), torch.float32), ((2048, 3072), torch.float32),
                   ((4, 1536), torch.float32), ((4, 3072), torch.float32)]
+    norm_more = []
     for shape, dtype in norm_cases:
         x = randn(shape, dtype)
         scale = randn(shape[-1:])
         err = compare(f"fused_rmsnorm {shape} {dtype_name(dtype)}",
                       ops.fused_rmsnorm(x, scale), ref.rmsnorm_ref(x, scale),
                       TOL[dtype_name(dtype)])
-        if shape != (2048, 2560) or dtype != torch.float32:
+        if (shape, dtype_name(dtype)) not in NORM_TIMED:
             continue
-        results["fused_rmsnorm"] = dict(timed(
-            "fused_rmsnorm", "x(2048, 2560) float32", err,
+        out = torch.empty_like(x)
+        r = timed(
+            "fused_rmsnorm", f"x{shape} {dtype_name(dtype)}", err,
             lambda: ops.fused_rmsnorm(x, scale),
             lambda: ref.rmsnorm_ref(x, scale),
             lambda: F.rms_norm(x, (shape[-1],), scale, 1e-5),
             2 * x.numel() * x.element_size() + scale.numel() * 4,
-            4 * x.numel(), dtype),
-            route="cuda", source="src/repro_torch/kernels/csrc/rmsnorm.cu",
-            replaces="src/repro/kernels/rmsnorm.py:19")
+            4 * x.numel(), dtype, copy=lambda: out.copy_(x))
+        if (shape, dtype_name(dtype)) == NORM_TIMED[0]:
+            results["fused_rmsnorm"] = dict(
+                r, route="cuda",
+                source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+                replaces="src/repro/kernels/rmsnorm.py:19")
+        else:
+            norm_more.append(r)
+    results["fused_rmsnorm"]["other_shapes"] = norm_more
 
     # SSD scan
     def ssd_inputs(B, S, H, P, N, dtype, init, model_like=False):
@@ -324,7 +354,7 @@ def main() -> None:
         return nbytes, flops
 
     ssd_cases = [  # (label, B, S, H, P, N, chunk, dtype, initial state)
-        ("main", BATCH, PROMPT, 48, 64, 128, 256, torch.float32, False),
+        *((c[0], *c[1:], torch.float32, False) for c in SSD_TIMED),
         ("main, initial state", BATCH, PROMPT, 48, 64, 128, 256,
          torch.float32, True),
         ("ragged S=100", 2, 100, 8, 64, 128, 32, torch.float32, False),
@@ -336,9 +366,12 @@ def main() -> None:
                                   (1, 128, 16, 32, 32, 32),
                                   (2, 96, 4, 8, 8, 24),
                                   (1, 64, 8, 64, 128, 16))]
+    timed_labels = [c[0] for c in SSD_TIMED]
+    ssd_more = []
     for label, B, S, H, P, N, L, dtype, init in ssd_cases:
         args = ssd_inputs(B, S, H, P, N, dtype, init,
-                          model_like=label.startswith("main"))
+                          model_like=label.startswith("main")
+                          or label in timed_labels)
         x, dt, A, Bm, Cm, D, s0 = args
         y, sf = ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=L, initial_state=s0)
         yr, sr = ref.ssd_ref(x, dt, A, Bm, Cm, D, s0)
@@ -346,16 +379,23 @@ def main() -> None:
         err = compare(f"{name} {dtype_name(dtype)} y", y, yr,
                       SSD_Y_TOL[dtype_name(dtype)])
         compare(f"{name} final state", sf, sr, SSD_STATE_TOL)
-        if label != "main":
+        if label not in timed_labels:
             continue
         nbytes, flops = ssd_work(B, S, H, P, N, L, x.element_size(), init)
-        results["ssd_scan"] = dict(timed(
+        r = timed(
             "ssd_scan", f"x{(B, S, H, P)} B/C{(B, S, 1, N)} chunk {L} float32",
             err, lambda: ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=L),
             lambda: ref.ssd_ref(x, dt, A, Bm, Cm, D), None, nbytes, flops,
-            torch.float32, plain_reps=3),
-            route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
-            replaces="src/repro/kernels/ssd_scan.py:29")
+            torch.float32, plain_reps=3 if S <= PROMPT else 1,
+            plain_warmup=3 if S <= PROMPT else 1)
+        if label == timed_labels[0]:
+            results["ssd_scan"] = dict(
+                r, route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan.py:29")
+        else:
+            ssd_more.append(r)
+    results["ssd_scan"]["other_shapes"] = ssd_more
 
     # grouped matmul: qwen3's expert FF at prefill (G=2 groups of 1024
     # tokens, C=80) and at decode (C=8), gate/up and down, then the sweep
@@ -396,9 +436,11 @@ def main() -> None:
     def show(r):
         lib = "no single call" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms ({r['ms'] / r['library_ms']:.2f}x)"
+        copy = f", copy of the bytes {r['copy_ms']:.4f} ms" \
+            if "copy_ms" in r else ""
         print(f"[time] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, library {lib}, "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}){copy}")
 
     for r in results.values():
         show(r)
@@ -581,8 +623,8 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "launches_by_path", "other_shapes")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "copy_ms",
+            "shape", "launches_by_path", "other_shapes")
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in results.values()]}))

@@ -37,6 +37,7 @@ SIGNATURES = {
     #                                                  rows, d, eps, stream
     "gs_ssd_scan": [_I, _P, _P, _P, _P, _P, _P,  # dtype, x, dt, A, B, C, D
                     _P, _P, _P,  # initial state (or null), y, final state
+                    _P, _P, _P,  # workspaces: chunk sums, C.B^T, chunk states
                     _I, _I, _I, _I, _I, _I, _I,  # B, S, H, G, P, N, chunk
                     _L, _L, _L, _L, _L, _L,  # x, dt strides (b, s, h)
                     _L, _L, _L, _L, _L, _L,  # B, C strides (b, s, g)

@@ -114,16 +114,37 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     return y
 
 
+_SSD_CHUNK = 64  # tokens of the SSD kernels' own chunk (kLk in ssd_scan.cu)
+_SSD_SUMS = 5  # float arrays of _SSD_CHUNK per chunk (kSums in ssd_scan.cu)
+
+
+def ssd_workspace(Bsz: int, S: int, H: int, G: int, P: int, N: int,
+                  device: torch.device
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The SSD kernels' float32 scratch on ``device`` (the caching
+    allocator, on the current stream): the per-chunk log-decay sums
+    (B, H, nc, 5, 64), each chunk's C.B^T per B/C group (B, nc, G, 64, 64)
+    and the chunk states (B, nc, H, P, N), nc = ceil(S / 64); the kernels
+    fill each before they read it."""
+    nc = -(-S // _SSD_CHUNK)
+    f32 = dict(dtype=torch.float32, device=device)
+    return (torch.empty((Bsz, H, nc, _SSD_SUMS, _SSD_CHUNK), **f32),
+            torch.empty((Bsz, nc, G, _SSD_CHUNK, _SSD_CHUNK), **f32),
+            torch.empty((Bsz, nc, H, P, N), **f32))
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
              chunk: int = 128, initial_state: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan. x (B,S,H,P), dt (B,S,H), A/D (H,), B/C (B,S,G,N),
     initial_state (B,H,P,N) -> (y (B,S,H,P) in x's dtype, final state
-    (B,H,P,N) float32). Any S is taken: the kernel masks a ragged last
-    chunk instead of shrinking ``chunk`` to a divisor of S. The kernel
-    takes P <= 64 and N <= 128 and refuses sizes beyond them, or a chunk
-    below 1, with cudaErrorInvalidValue, raised here as ValueError."""
+    (B,H,P,N) float32). Any S is taken: the kernels mask a ragged last
+    chunk instead of shrinking ``chunk`` to a divisor of S. They chunk at
+    64 tokens (``_SSD_CHUNK``) whatever ``chunk`` is, since the function
+    does not depend on where chunks fall. The kernel takes P <= 64 and
+    N <= 128 and refuses sizes beyond them, or a chunk below 1, with
+    cudaErrorInvalidValue, raised here as ValueError."""
     given = [x, dt, A, B, C, D] + ([] if initial_state is None
                                    else [initial_state])
     if all(t.device.type == "cpu" for t in given):
@@ -155,12 +176,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"{(Bsz, H, P, N)}, got {tuple(initial_state.shape)}")
     y = torch.empty((Bsz, S, H, P), dtype=x.dtype, device=x.device)
     final = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    sums, cb, states = ssd_workspace(Bsz, S, H, G, P, N, x.device)
     s0 = 0 if initial_state is None else initial_state.data_ptr()
     with torch.cuda.device(x.device):
         err = build.library().gs_ssd_scan(
             _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
             B.data_ptr(), C.data_ptr(), D.data_ptr(), s0, y.data_ptr(),
-            final.data_ptr(), Bsz, S, H, G, P, N, int(chunk),
+            final.data_ptr(), sums.data_ptr(), cb.data_ptr(),
+            states.data_ptr(),
+            Bsz, S, H, G, P, N, int(chunk),
             *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3],
             torch.cuda.current_stream().cuda_stream)
     _raise_on("ssd_scan", err)

@@ -225,6 +225,131 @@ class TestCudaTilingEdges:
                                        **_tol(name))
 
 
+SSD_CHUNKING = [(2048, 64), (2048, 256),  # many chunks
+                 (1, 1), (33, 1), (64, 16), (100, 16), (100, 100),
+                 (257, 256), (65, 256), (130, 256)]  # ragged S
+
+
+def _ssd_check(args, chunk, name):
+    """One launch per call, dtypes kept, y and the final state against the
+    token recurrence at the SSD bars (5e-4 f32, 5e-2 bf16; state 5e-3)."""
+    x, dt, A, Bm, Cm, D, s0 = args
+    before = t_ops.LAUNCHES["ssd_scan"]
+    y, sf = t_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk, initial_state=s0)
+    torch.cuda.synchronize()
+    assert t_ops.LAUNCHES["ssd_scan"] == before + 1
+    assert y.dtype == x.dtype and y.shape == x.shape
+    assert sf.dtype == torch.float32
+    yr, sr = t_ref.ssd_ref(x, dt, A, Bm, Cm, D, s0)
+    tol = 5e-2 if name == "bfloat16" else 5e-4
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               yr.float().cpu().numpy(), atol=tol, rtol=tol)
+    np.testing.assert_allclose(sf.cpu().numpy(), sr.cpu().numpy(),
+                               atol=5e-3, rtol=5e-3)
+
+
+@pytest.mark.cuda
+class TestCudaSsdChunkParallel:
+    """The chunk-parallel SSD kernels (64-token chunks whatever ``chunk``
+    is): many chunks, every caller chunk, ragged S, B/C groups, initial
+    states, contiguous, strided and misaligned B/C, and mamba2-780m's own
+    A = -(1..48) with dt up to 2. Both dtypes."""
+
+    @pytest.mark.parametrize("name", list(TORCH_DTYPES))
+    @pytest.mark.parametrize("init", [False, True])
+    @pytest.mark.parametrize("g", [1, 2, 8])
+    @pytest.mark.parametrize("s,chunk", SSD_CHUNKING)
+    def test_chunks_groups_and_states(self, cuda, name, s, chunk, g, init):
+        rng = np.random.default_rng(s * 31 + chunk * 7 + g)
+        f = lambda *shape: torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(cuda)
+        b, h, p, n = 2, 8, 64, 128
+        bc = f(b, s, g, 2 * n).to(TORCH_DTYPES[name])
+        args = (f(b, s, h, p).to(TORCH_DTYPES[name]),
+                torch.nn.functional.softplus(f(b, s, h)),
+                -torch.exp(f(h) * 0.5), bc[..., :n], bc[..., n:], f(h),
+                f(b, h, p, n) if init else None)
+        _ssd_check(args, chunk, name)
+
+    @pytest.mark.parametrize("name", list(TORCH_DTYPES))
+    @pytest.mark.parametrize("init", [False, True])
+    @pytest.mark.parametrize("layout", ["contiguous", "views", "misaligned",
+                                        "narrow"])
+    def test_layouts(self, cuda, name, layout, init):
+        """B/C as contiguous tensors, as views of one (B,S,G,2N) tensor, as
+        views one element off the 16-byte rows (element-wise loads), and
+        P, N off the 16-byte units (P=6, N=10)."""
+        rng = np.random.default_rng(len(layout) + init)
+        f = lambda *shape: torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(cuda)
+        b, s, h, g = 2, 300, 8, 2
+        p, n = (6, 10) if layout == "narrow" else (64, 128)
+        dtype = TORCH_DTYPES[name]
+        if layout == "contiguous":
+            Bm, Cm = f(b, s, g, n).to(dtype), f(b, s, g, n).to(dtype)
+        else:
+            lo = 1 if layout == "misaligned" else 0
+            bc = f(b, s, g, 2 * n + 1).to(dtype)
+            Bm, Cm = bc[..., lo:lo + n], bc[..., lo + n:lo + 2 * n]
+        args = (f(b, s, h, p).to(dtype),
+                torch.nn.functional.softplus(f(b, s, h)),
+                -torch.exp(f(h) * 0.5), Bm, Cm, f(h),
+                f(b, h, p, n) if init else None)
+        _ssd_check(args, 256, name)
+
+    @pytest.mark.parametrize("name", list(TORCH_DTYPES))
+    @pytest.mark.parametrize("init", [False, True])
+    def test_model_like_decay(self, cuda, name, init):
+        """A = -(1..48) and dt in (0, 2): a step's log-decay down to -96,
+        a chunk's cumsum near -1e4, where differences of cumsums would
+        lose the 5e-4 bar."""
+        rng = np.random.default_rng(48 + init)
+        f = lambda *shape: torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(cuda)
+        b, s, h, p, n = 2, 512, 48, 64, 128
+        dtype = TORCH_DTYPES[name]
+        bc = f(b, s, 1, 2 * n).to(dtype)
+        args = (f(b, s, h, p).to(dtype), 2 * torch.sigmoid(f(b, s, h)),
+                -torch.arange(1, h + 1, dtype=torch.float32, device=cuda),
+                bc[..., :n], bc[..., n:], f(h), f(b, h, p, n) if init else None)
+        _ssd_check(args, 256, name)
+
+
+@pytest.mark.cuda
+class TestCudaNormWidths:
+    """The RMSNorm register path (one read, 16-byte vectors, 32 to 256
+    threads per row) at every served width and beyond, and the general
+    path (widths off the 16-byte units, too wide, misaligned bases)."""
+
+    @pytest.mark.parametrize("name", list(TORCH_DTYPES))
+    @pytest.mark.parametrize("rows", [1, 4, 37, 2048])
+    @pytest.mark.parametrize("d", [1, 7, 96, 1536, 2048, 2560, 3072, 8192,
+                                   10000])
+    def test_widths_and_rows(self, cuda, name, d, rows):
+        rng = np.random.default_rng(d * 7 + rows)
+        _norm_check(_rand(rng, (rows, d), name, cuda), rng, name, cuda)
+
+    @pytest.mark.parametrize("name", list(TORCH_DTYPES))
+    @pytest.mark.parametrize("d", [96, 1536, 2560])
+    def test_unaligned_base(self, cuda, name, d):
+        rng = np.random.default_rng(d)
+        flat = _rand(rng, (37 * d + 1,), name, cuda)
+        _norm_check(flat[1:].view(37, d), rng, name, cuda)
+
+
+def _norm_check(x, rng, name, cuda):
+    s = torch.from_numpy(rng.standard_normal(x.shape[-1]).astype(
+        np.float32)).to(cuda)
+    before = t_ops.LAUNCHES["fused_rmsnorm"]
+    out = t_ops.fused_rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert t_ops.LAUNCHES["fused_rmsnorm"] == before + 1
+    assert out.dtype == x.dtype and out.shape == x.shape
+    want = t_ref.rmsnorm_ref(x, s)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **_tol(name))
+
+
 @pytest.mark.cuda
 def test_launcher_refuses_float32_qwen3_moe(cuda):
     """qwen3-moe-30b-a3b in float32 needs 122 GB: the launcher says so

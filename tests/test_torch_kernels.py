@@ -8,6 +8,8 @@ sweep plus S=96 and D=80 with a window, at the same bars (5e-4 f32, 2e-2
 bf16; the SSD state at 5e-3, or 5e-4 from an initial state, as there). The CUDA kernels themselves run only on the card:
 ``tests/test_torch_cuda.py`` holds them against the plain versions there."""
 
+import re
+
 import numpy as np
 import pytest
 
@@ -250,16 +252,109 @@ class TestWrappers:
         assert t_build._digest("nvcc") != before
 
 
-def test_chip_smoke_names_each_kernel_with_its_spills():
-    """``chip_smoke.py`` turns nvcc's ``-Xptxas -v`` log into one
-    ``[build]`` line per kernel, so a spill is tied to the kernel that
-    spilled."""
+def _meta_launch(monkeypatch, lib):
+    """Route the wrappers' CUDA branch to ``lib`` on meta tensors: no
+    device check, no device context, stream 0."""
+    import contextlib
+    import types
+
+    monkeypatch.setattr(t_ops, "_check_cuda", lambda name, *ts: None)
+    monkeypatch.setattr(t_build, "library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(t_ops, "LAUNCHES", dict(t_ops.LAUNCHES))
+
+
+class TestSsdCall:
+    """The SSD wrapper's call of ``gs_ssd_scan``, checked on the CPU: the
+    arguments go through a ctypes prototype of the declared signature, as
+    they do into the library on the card."""
+
+    def test_call_matches_the_signature_and_workspace_device(self,
+                                                             monkeypatch):
+        import ctypes
+
+        calls, spaces = [], []
+        proto = ctypes.CFUNCTYPE(ctypes.c_int,
+                                 *t_build.SIGNATURES["gs_ssd_scan"])
+        fake = proto(lambda *args: calls.append(args) or 0)
+        _meta_launch(monkeypatch, type("Lib", (), {"gs_ssd_scan": fake})())
+        real = t_ops.ssd_workspace
+        monkeypatch.setattr(t_ops, "ssd_workspace", lambda *a: spaces.append(
+            real(*a)) or spaces[-1])
+        meta = lambda *shape: torch.empty(shape, device="meta")
+        b, s, h, g, p, n = 2, 130, 4, 2, 16, 8
+        bc = meta(b, s, g, 2 * n)
+        y, sf = t_ops.ssd_scan(meta(b, s, h, p), meta(b, s, h), meta(h),
+                               bc[..., :n], bc[..., n:], meta(h), chunk=256,
+                               initial_state=meta(b, h, p, n))
+        assert len(calls) == 1 and t_ops.LAUNCHES["ssd_scan"] == 1
+        args = calls[0]
+        assert len(args) == len(t_build.SIGNATURES["gs_ssd_scan"])
+        assert args[13:20] == (b, s, h, g, p, n, 256)
+        assert args[20:23] == (s * h * p, h * p, p)  # x strides
+        assert args[26:29] == (s * g * 2 * n, g * 2 * n, 2 * n)  # B strides
+        assert y.device.type == sf.device.type == "meta"
+        # the workspaces: the input's device, nc = ceil(130 / 64) = 3
+        (sums, cb, states), = spaces
+        assert sums.device == cb.device == states.device == \
+            torch.device("meta")
+        assert sums.dtype == cb.dtype == states.dtype == torch.float32
+        assert tuple(sums.shape) == (b, h, 3, 5, 64)
+        assert tuple(cb.shape) == (b, 3, g, 64, 64)
+        assert tuple(states.shape) == (b, 3, h, p, n)
+
+    @pytest.mark.parametrize("s,nc", [(0, 0), (1, 1), (64, 1), (65, 2),
+                                      (512, 8), (4096, 64)])
+    def test_workspace_sizes(self, s, nc):
+        sums, cb, states = t_ops.ssd_workspace(4, s, 48, 1, 64, 128,
+                                               torch.device("meta"))
+        assert tuple(sums.shape) == (4, 48, nc, 5, 64)
+        assert tuple(cb.shape) == (4, nc, 1, 64, 64)
+        assert tuple(states.shape) == (4, nc, 48, 64, 128)
+
+
+def _chip_smoke():
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", t_build.CSRC.parents[3] / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_chip_smoke_times_every_served_norm_and_a_long_ssd_prompt():
+    """``chip_smoke.py`` times RMSNorm at every served prefill shape and at
+    decode, the SSD scan at the prefill and at a 4096-token prompt, and
+    its ``--profile`` report names every SSD sub-kernel."""
+    smoke = _chip_smoke()
+    assert set(smoke.NORM_TIMED) >= {
+        ((2048, 2560), "float32"), ((2048, 1536), "float32"),
+        ((2048, 3072), "float32"), ((2048, 2048), "bfloat16"),
+        ((4, 2560), "float32")}
+    assert smoke.NORM_TIMED[0] == ((2048, 2560), "float32")
+    assert smoke.SSD_TIMED[0] == ("main", 4, 512, 48, 64, 128, 256)
+    assert ("long prompt", 1, 4096, 48, 64, 128, 256) in smoke.SSD_TIMED
+    # the profile keeps every kernel whose name holds "ssd_": the five
+    # kernels of ssd_scan.cu
+    src = (t_build.CSRC / "ssd_scan.cu").read_text()
+    kernels = set(re.findall(r"__global__ void __launch_bounds__\([^)]*\)"
+                             r"\s+(\w+)\(", src))
+    assert sorted(kernels) == ["ssd_chunk_cb", "ssd_chunk_scan",
+                               "ssd_chunk_state", "ssd_chunk_sums",
+                               "ssd_state_pass"]
+    assert '"ssd_" in key' in (t_build.CSRC.parents[3]
+                               / "chip_smoke.py").read_text()
+
+
+def test_chip_smoke_names_each_kernel_with_its_spills():
+    """``chip_smoke.py`` turns nvcc's ``-Xptxas -v`` log into one
+    ``[build]`` line per kernel, so a spill is tied to the kernel that
+    spilled."""
+    smoke = _chip_smoke()
     entry = "_ZN12_GLOBAL__N_114flash_fwd_bf16ILi128ELb1EEEvNS_6ParamsE"
     log = "\n".join([
         "== flash_attention.cu",
