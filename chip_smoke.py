@@ -3,11 +3,13 @@
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--seed N]
 
 ``--profile`` adds a torch.profiler breakdown of device time by kernel
 over one warm prefill and the decode steps of each served path (the top
-kernels, and every SSD sub-kernel by name).
+kernels, and every SSD sub-kernel by name), and of one warm ``xregion``
+and one ``temporal_joint`` route of the decide half (top ops, busy share).
+``--seed`` (default 0) seeds the fleet handoff's weights and prompts.
 
 Phases (any failure ends the script with a non-zero exit):
 
@@ -41,6 +43,20 @@ Phases (any failure ends the script with a non-zero exit):
 4. Check the card against the CPU on small inputs: the three smoke
    configs' logits and greedy tokens, and the full config's routing
    decision.
+5. ``[fleet]``: the decide half on the card at the sizes of the repo's
+   routing results (``FLEET``): ``FleetRouter`` with the Table-1 oracle,
+   tier-only and cross-region ``PlacementPolicy``, the joint
+   ``TemporalPolicy`` and the 128-site sparse mesoscale grid, routing 1M
+   requests (200k deferrable for the temporal one). One line each after a
+   warm-up call: routed and total gCO2, shed / spilled / deferred counts,
+   admission rounds, warm wall time and requests per second. On each
+   configuration's first 50,000 requests the card's decisions (target,
+   executing region and hour, shed mask, counts) must equal the CPU's
+   exactly and carbon agree within rtol 1e-5. Then the handoff:
+   ``admit_windows`` for an engine pinned to the edge-DC tier picks the
+   first hourly window of ``xregion`` that admitted at least 4 requests,
+   and 4 of them are served through the full-width danube f32 engine
+   (prompt 512, 16 new tokens, counters exact: 24 flash, 49 x 16 RMSNorm).
 
 The second-last line is one JSON object ``{"kernels": [...]}`` with each
 kernel's launches on the served paths, error, times and bound; the line
@@ -160,8 +176,220 @@ def profile_path(torch, engine, prompt, label: str) -> None:
     report(f"{NEW - 1} decode steps", prof, wall)
 
 
+def device_profile(torch, fn, label: str) -> None:
+    """Device time by op over one call of ``fn`` (torch.profiler): the top
+    device-side events and the share of the wall time the card was busy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"[profile] {label}: wall {wall / 1e3:.1f} ms, device "
+          f"{busy / 1e3:.1f} ms ({busy / wall:.1%} busy)")
+    for us, count, key in rows[:12]:
+        print(f"[profile]   {us / 1e3:9.3f} ms {us / max(busy, 1e-9):6.1%} "
+              f"x{count:<5} {key[:90]}")
+
+
+# The decide half's configurations (benchmarks/policy_throughput.py's
+# placement, temporal and mesoscale rows): name, stream, requests, regions,
+# grid, policy, DC-tier cap fraction of n / (R * 24) per cell.
+FLEET = [
+    ("uncapped", "multi_region", 1_000_000, 4, "default", "oracle", None),
+    ("tier_spill", "multi_region", 1_000_000, 4, "default", "placement", 0.4),
+    ("xregion", "multi_region", 1_000_000, 4, "fully_connected", "placement",
+     0.4),
+    ("temporal_joint", "deferrable", 200_000, 4, "fully_connected",
+     "temporal", 0.6),
+    ("mesoscale", "multi_region", 1_000_000, 128, "sites", "placement", 0.4),
+]
+FLEET_CHECK_N = 50_000  # card against CPU on each stream's first requests
+FLEET_RTOL = 1e-5
+
+
+def fleet_phase(torch, dev, results, profile: bool, seed: int) -> None:
+    """Phase 5: route the configurations of ``FLEET`` on the card, hold
+    their decisions against the CPU, and hand ``xregion``'s admitted
+    requests to the danube engine."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.carbon_intensity import CarbonGrid
+    from repro_torch.core.constants import Target
+    from repro_torch.core.infrastructure import pack_infra, tpu_fleet
+    from repro_torch.kernels import ops
+    from repro_torch.models import Transformer
+    from repro_torch.serve import (
+        FleetRouter,
+        OraclePolicy,
+        PlacementPolicy,
+        ServeEngine,
+        TemporalPolicy,
+    )
+    from repro_torch.serve.streams import deferrable_stream, multi_region_stream
+
+    cfg = get_config(DANUBE)
+
+    def stream(kind, n, n_regions):
+        if kind == "deferrable":
+            return deferrable_stream(n, n_regions)
+        return multi_region_stream(n, n_regions,
+                                   seed=1 if n_regions > 4 else 0)
+
+    def router(spec, n, device):
+        _, _, _, n_regions, grid_kind, pol, frac = spec
+        if grid_kind == "sites":
+            grid = CarbonGrid.from_sites(n_regions, 8, seed=0, device=device)
+        elif grid_kind == "fully_connected":
+            grid = CarbonGrid.fully_connected(latency_penalty=1.05,
+                                              device=device)
+        else:
+            grid = CarbonGrid.from_regions(device=device)
+        infra = pack_infra(tpu_fleet(), device=device)
+        caps = np.full((n_regions, 3), np.inf)
+        if frac is not None:
+            caps[:, 1] = caps[:, 2] = max(1.0, frac * n / (n_regions * 24))
+        policy = {"oracle": lambda: OraclePolicy(infra),
+                  "placement": lambda: PlacementPolicy(OraclePolicy(infra),
+                                                       caps),
+                  "temporal": lambda: TemporalPolicy(OraclePolicy(infra),
+                                                     caps, max_defer_h=12),
+                  }[pol]()
+        return FleetRouter(cfg, grid=grid, policy=policy, device=device)
+
+    def head(batch, region, t_hours, n):
+        cut = {f.name: (None if getattr(batch, f.name) is None
+                        else getattr(batch, f.name)[:n])
+               for f in dataclasses.fields(batch)}
+        return dataclasses.replace(batch, **cut), region[:n], t_hours[:n]
+
+    def decisions(res, state, t_hours, horizon):
+        host = lambda x: x.cpu().numpy()
+        hour = np.floor(t_hours).astype(np.int64) % horizon
+        ex_h = getattr(state, "exec_hour", None)
+        shed = getattr(state, "shed", None)
+        return {"target": host(res.target),
+                "exec_region": host(res.exec_region),
+                "exec_hour": hour if ex_h is None else host(ex_h),
+                "shed": (np.zeros(len(t_hours), bool) if shed is None
+                         else host(shed)),
+                "counts": host(res.counts)}
+
+    xregion = None
+    for spec in FLEET:
+        name, kind, n, n_regions = spec[:4]
+        t0 = time.perf_counter()
+        batch, region, t_hours = stream(kind, n, n_regions)
+        t_stream = time.perf_counter() - t0
+        fr = router(spec, n, dev)
+        fr.route_stream(batch, region, t_hours)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, state = fr.route_stream_with_state(batch, region, t_hours)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rounds = getattr(fr.policy, "last_rounds", 0)
+        routed, total = float(res.routed_carbon_g), float(res.total_carbon_g)
+        check(np.isfinite(routed) and np.isfinite(total) and routed > 0,
+              f"{name}: non-finite or zero routed carbon")
+        check(tuple(res.target.shape) == (n,)
+              and res.target.device.type == dev.type,
+              f"{name}: targets not (N,) on the card")
+        check(int(res.counts.sum()) + int(res.shed_count) == n,
+              f"{name}: counts and shed do not partition the stream")
+        print(f"[fleet] {name}: {n} requests, {n_regions} regions, policy "
+              f"{fr.policy.name}: routed {routed:.6g} g, total {total:.6g} "
+              f"g, shed {int(res.shed_count)}, spilled "
+              f"{int(res.spilled_count)}, deferred {int(res.deferred_count)}"
+              f", rounds {rounds}; warm {wall:.4f} s ({n / wall:.0f} req/s)"
+              f"; stream made in {t_stream:.2f} s")
+        if name == "xregion":
+            xregion = (fr, res, t_hours)
+        if profile and name in ("xregion", "temporal_joint"):
+            device_profile(torch, lambda: fr.route_stream(batch, region,
+                                                          t_hours),
+                           f"fleet {name} route")
+        del res, state
+
+        # card against CPU on the stream's first requests
+        sub = head(batch, region, t_hours, FLEET_CHECK_N)
+        got = {}
+        for d in (dev, "cpu"):
+            frd = router(spec, FLEET_CHECK_N, d)
+            r, st = frd.route_stream_with_state(*sub)
+            got[str(d)] = (decisions(r, st, sub[2], frd.grid.horizon_h),
+                      r.carbon_g.cpu().numpy(), float(r.routed_carbon_g))
+        card, cpu = got[str(dev)], got["cpu"]
+        for k, v in cpu[0].items():
+            bad = int((card[0][k] != v).sum())
+            check(bad == 0, f"{name}: {k} differs card vs CPU on the first "
+                  f"{FLEET_CHECK_N} requests ({bad} entries)")
+        check(np.allclose(card[1], cpu[1], rtol=FLEET_RTOL, atol=0),
+              f"{name}: per-request carbon differs card vs CPU")
+        check(abs(card[2] - cpu[2]) <= FLEET_RTOL * abs(cpu[2]),
+              f"{name}: routed carbon differs card vs CPU")
+        err = np.max(np.abs(card[1] - cpu[1])
+                     / np.maximum(np.abs(cpu[1]), 1e-30))
+        print(f"[fleet] {name} card == CPU on the first {FLEET_CHECK_N}: "
+              f"target, exec region/hour, shed, counts identical; carbon "
+              f"max rel err {err:.2e} (rtol {FLEET_RTOL:g})")
+        torch.cuda.empty_cache()
+
+    # --- the handoff: decide -> execute ---------------------------------------
+    fr, res, t_hours = xregion
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = Transformer(cfg, device=dev, dtype=torch.float32, generator=gen)
+    engine = ServeEngine(cfg, model, max_seq=PROMPT + NEW + 8,
+                         tier=int(Target.EDGE_DC), device=dev)
+    windows = fr.admit_windows(res, t_hours, engine)
+    hour = next((h for h, idx in enumerate(windows) if len(idx) >= 4), None)
+    check(hour is not None, "no hourly window admitted 4 edge-DC requests")
+    picked = windows[hour][:4]
+    tgt = res.target.cpu().numpy()[picked]
+    check(bool((tgt == int(Target.EDGE_DC)).all()),
+          "admitted requests are not routed to the edge DC")
+    prompt = torch.randint(0, cfg.vocab_size, (4, PROMPT), generator=gen,
+                           device=dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompt, max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    want = dict({k: 0 for k in launches}, flash_attention=cfg.n_layers,
+                fused_rmsnorm=(2 * cfg.n_layers + 1) * NEW)
+    check(launches == want, f"fleet handoff: launch counts {launches}, "
+          f"expected {want}")
+    check(tuple(tokens.shape) == (4, NEW) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+        "fleet handoff: tokens")
+    for name, r in results.items():
+        r["launches_by_path"][f"xregion -> {DANUBE}"] = launches[name]
+    print(f"[fleet] handoff: window {hour} admitted {len(windows[hour])} "
+          f"edge-DC requests of xregion; served requests "
+          f"{picked.tolist()} (exec regions "
+          f"{res.exec_region.cpu().numpy()[picked].tolist()}) through "
+          f"{DANUBE} f32, prompt ({len(picked)}, {PROMPT}), {NEW} new tokens "
+          f"in {wall:.3f} s; launches {launches}")
+    del model, engine
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
-    profile = "--profile" in sys.argv[1:]
+    args = sys.argv[1:]
+    profile = "--profile" in args
+    seed = int(args[args.index("--seed") + 1]) if "--seed" in args else 0
     import torch
 
     if not torch.cuda.is_available():
@@ -613,6 +841,11 @@ def main() -> None:
         "routed carbon differs card vs CPU")
     print(f"[small] routing at hour 12 card == CPU: target "
           f"{serve.TARGETS[dec['cuda'].target]}")
+
+    # --- phase 5: the decide half on the card, then the handoff ---------------
+    fleet_phase(torch, dev, results, profile, seed)
+    print(f"[chip_smoke] fleet phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     # --- result lines ---------------------------------------------------------
     for name, r in results.items():

@@ -1,14 +1,21 @@
 """GreenScale carbon emission model — paper Table 1 on torch tensors.
 
 Port of ``Environment``, ``CFBreakdown``, ``evaluate``, the QoS checks,
-``pick_target``, ``evaluate_energy``, ``RouteOutputs``, ``route_one`` and
-``route_many`` from the reference ``core/carbon_model.py``.
+``pick_target``, ``evaluate_energy``, ``RouteOutputs``, ``route_one``,
+``route_many``, ``route_many_envs``, the factorized evaluator
+(``EnergyFactors``, ``energy_factors[_batch]``, ``total_cf_from_factors``,
+``route_many_from_factors`` and its QoS checks), the forecast-risk helpers
+and ``optimal_targets_all_metrics`` from the reference
+``core/carbon_model.py``.
 
 Every function broadcasts over leading batch dimensions of the workload
 (and of ``env.ci``), which takes the place of the reference's ``jax.vmap``:
 ``route_many`` is ``route_one`` on a workload with a leading (N,) axis. The
 arithmetic follows the reference term by term and in the same order, in
-float32.
+float32. The reference's 5-component sums and einsums are written as
+explicit left-to-right elementwise sums (``_sum_last``), never a
+reduction kernel or a matmul, so the card and the CPU add in one order and
+their decisions agree to the bit.
 
 Unit discipline: time s, power W, energy J, carbon g, CI g/kWh.
 """
@@ -19,7 +26,12 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.constants import J_PER_KWH, Component, Target
+from repro_torch.core.constants import (
+    J_PER_KWH,
+    N_COMPONENTS,
+    Component,
+    Target,
+)
 from repro_torch.core.infrastructure import InfraParams
 from repro_torch.core.workloads import Workload
 from repro_torch.device import resolve_device
@@ -63,20 +75,42 @@ class CFBreakdown:
 
     @property
     def total_cf(self) -> torch.Tensor:  # (..., 3)
-        return self.op_cf.sum(-1) + self.emb_cf.sum(-1)
+        return _sum_last(self.op_cf) + _sum_last(self.emb_cf)
 
     @property
     def op_total(self) -> torch.Tensor:  # (..., 3)
-        return self.op_cf.sum(-1)
+        return _sum_last(self.op_cf)
 
     @property
     def emb_total(self) -> torch.Tensor:  # (..., 3)
-        return self.emb_cf.sum(-1)
+        return _sum_last(self.emb_cf)
+
+
+def _sum_last(x: torch.Tensor) -> torch.Tensor:
+    """Sum over a short last axis, left to right in elementwise adds: the
+    same bits on the card and the CPU (a reduction kernel may reassociate
+    differently on each, and a one-ulp flip moves a tied decision)."""
+    out = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        out = out + x[..., k]
+    return out
+
+
+def _dot_last(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum('...c,...c->...', a, b)`` as ordered elementwise
+    multiply-adds (see ``_sum_last``); broadcasts like ``a * b``."""
+    out = a[..., 0] * b[..., 0]
+    for k in range(1, a.shape[-1]):
+        out = out + a[..., k] * b[..., k]
+    return out
 
 
 def _cf(energy_j: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
-    """Operational CF in grams from energy (J) and carbon intensity (g/kWh)."""
-    return energy_j / J_PER_KWH * ci
+    """Operational CF in grams from energy (J) and carbon intensity (g/kWh).
+    The divisor is a tensor on the operand's device: PyTorch's CUDA kernel
+    divides by a CPU scalar as a multiply by its reciprocal, which may be
+    one ulp off the CPU's (and XLA's) true division."""
+    return energy_j / energy_j.new_tensor(J_PER_KWH) * ci
 
 
 def compute_times(w: Workload, infra: InfraParams,
@@ -228,7 +262,7 @@ def evaluate_energy(w: Workload, infra: InfraParams,
     unit_env = Environment(ci=torch.ones_like(env.ci),
                            interference=env.interference,
                            net_slowdown=env.net_slowdown)
-    return evaluate(w, infra, unit_env).op_cf.sum(-1) * J_PER_KWH
+    return _sum_last(evaluate(w, infra, unit_env).op_cf) * J_PER_KWH
 
 
 @dataclasses.dataclass(frozen=True)
@@ -272,3 +306,156 @@ def route_many(w: Workload, infra: InfraParams, env: Environment,
         raise ValueError(f"route_many wants (N,) workloads and (N, 3) avail, "
                          f"got {tuple(w.flops.shape)} and {tuple(avail.shape)}")
     return route_one(w, infra, env, avail)
+
+
+def route_many_envs(w: Workload, infra: InfraParams, env: Environment,
+                    avail: torch.Tensor) -> RouteOutputs:
+    """(N,)-batched requests, each against ITS OWN environment: ``env.ci``
+    (N, 5) per-request CI rows; interference / net_slowdown stay shared."""
+    if env.ci.shape != w.flops.shape + (N_COMPONENTS,):
+        raise ValueError(f"route_many_envs wants (N, {N_COMPONENTS}) CI rows "
+                         f"for {tuple(w.flops.shape)} workloads, got "
+                         f"{tuple(env.ci.shape)}")
+    return route_one(w, infra, env, avail)
+
+
+# ---------------------------------------------------------------------------
+# Factorized evaluator: operational carbon is LINEAR in carbon intensity, so
+# one Table-1 evaluation at unit CI scores every candidate (region, hour) as
+# an ordered dot against a CarbonGrid CI row.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EnergyFactors:
+    """CI-independent factorization of Table 1, batched over requests.
+
+    ``op_unit``  (..., 3, 5) grams per (g/kWh): operational CF at unit CI.
+    ``emb_cf``   (..., 3, 5) grams, embodied (CI-free).
+    ``latency``  (..., 3) s end-to-end; ``t_comm`` (..., 2) network times.
+    """
+
+    op_unit: torch.Tensor
+    emb_cf: torch.Tensor
+    latency: torch.Tensor
+    t_comm: torch.Tensor
+
+    @property
+    def emb_total(self) -> torch.Tensor:  # (..., 3)
+        return _sum_last(self.emb_cf)
+
+    @property
+    def energy_j(self) -> torch.Tensor:
+        """(..., 3) operational energy per target."""
+        return _sum_last(self.op_unit) * J_PER_KWH
+
+
+def energy_factors(w: Workload, infra: InfraParams, interference,
+                   net_slowdown) -> EnergyFactors:
+    """One Table-1 evaluation at unit CI; interference / net_slowdown shape
+    the times exactly as in ``evaluate``. Batches over ``w``'s leading
+    axes (the reference's ``energy_factors_batch`` vmap)."""
+    dev = w.flops.device
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    unit_env = Environment(ci=torch.ones((N_COMPONENTS,), dtype=torch.float32,
+                                         device=dev),
+                           interference=f32(interference),
+                           net_slowdown=f32(net_slowdown))
+    b = evaluate(w, infra, unit_env)
+    return EnergyFactors(op_unit=b.op_cf, emb_cf=b.emb_cf, latency=b.latency,
+                         t_comm=b.t_comm)
+
+
+#: (N,)-batched factorization: ``energy_factors`` already batches.
+energy_factors_batch = energy_factors
+
+
+def total_cf_from_factors(f: EnergyFactors, ci: torch.Tensor) -> torch.Tensor:
+    """(N, 3) total CF rows under per-request CI rows ``ci`` (N, 5)."""
+    return _dot_last(f.op_unit, ci[..., None, :]) + f.emb_total
+
+
+# --- Forecast-error risk on the factorized scorer ------------------------------
+
+#: grid-trace-driven components of the 5-component CI row
+_HOME_CI_RISK = (0.0, 1.0, 1.0, 0.0, 1.0)
+#: ... and of the relocating [edge_dc, core_net, hyper_dc] columns
+_DC_CI_RISK = (1.0, 0.0, 1.0)
+
+
+def forecast_risk_scale(lead_h, sigma_h: float,
+                        risk_lambda: float) -> torch.Tensor:
+    """``1 + lambda * sigma_h * sqrt(lead)``: the mean-plus-lambda-std score
+    multiplier on forecast-driven CI at ``lead_h`` hours ahead."""
+    lead = torch.clamp_min(torch.as_tensor(lead_h, dtype=torch.float32), 0.0)
+    return 1.0 + risk_lambda * sigma_h * torch.sqrt(lead)
+
+
+def inflate_ci_risk(home_ci: torch.Tensor, cand_ci_dc: torch.Tensor, scale
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Apply a ``forecast_risk_scale`` multiplier to the forecast-driven
+    components of ``home_ci`` (..., 5) and ``cand_ci_dc`` (..., 3)."""
+    dev = home_ci.device
+    s = torch.as_tensor(scale, dtype=torch.float32, device=dev)
+    mask = lambda m: torch.tensor(m, dtype=torch.float32, device=dev)
+    home = home_ci * (1.0 + (s - 1.0) * mask(_HOME_CI_RISK))
+    dc = cand_ci_dc * (1.0 + (s - 1.0) * mask(_DC_CI_RISK))
+    return home, dc
+
+
+#: (N, 3) fps-sustain feasibility over batched factors
+stream_feasible_batch = stream_feasible
+
+
+def qos_feasible_from_factors(f: EnergyFactors, w: Workload,
+                              extra_latency=0.0) -> torch.Tensor:
+    """(N, 3) QoS feasibility from batched factors (+ optional WAN hop,
+    scalar or (N,))."""
+    extra = torch.as_tensor(extra_latency, dtype=torch.float32,
+                            device=f.latency.device)
+    extra = extra.expand(w.flops.shape)[:, None]
+    return qos_feasible(f.latency, f.t_comm, w, extra)
+
+
+def pair_qos_feasible_from_factors(f: EnergyFactors, w: Workload,
+                                   extra_latency: torch.Tensor
+                                   ) -> torch.Tensor:
+    """(R, N, 3) QoS feasibility of every candidate placement under
+    per-candidate WAN hops ``extra_latency`` (R, N)."""
+    lat = f.latency[None] + extra_latency.to(torch.float32)[:, :, None]
+    return ((lat <= w.latency_req[None, :, None])
+            & stream_feasible_batch(f.t_comm, w)[None])
+
+
+def route_many_from_factors(f: EnergyFactors, w: Workload, ci: torch.Tensor,
+                            avail: torch.Tensor) -> RouteOutputs:
+    """``route_many_envs`` rebuilt from precomputed factors and the
+    per-request home CI rows — no Table-1 re-evaluation."""
+    total_cf = total_cf_from_factors(f, ci)
+    ok = qos_feasible_from_factors(f, w) & avail
+    energy = f.energy_j
+    return RouteOutputs(
+        target=pick_target(total_cf, ok, total_cf, avail),
+        target_latency=pick_target(f.latency, ok, total_cf, avail),
+        target_energy=pick_target(energy, ok, total_cf, avail),
+        total_cf=total_cf,
+        latency=f.latency,
+        ok=ok,
+    )
+
+
+def optimal_targets_all_metrics(w: Workload, infra: InfraParams,
+                                env: Environment,
+                                avail: torch.Tensor | None = None) -> dict:
+    """Carbon/energy/latency-optimal targets, feasibility-aware (Fig 5)."""
+    b = evaluate(w, infra, env)
+    ok = feasible(b, w)
+    out = route_one(w, infra, env,
+                    torch.ones_like(ok) if avail is None else avail)
+    return {
+        "carbon": out.target,
+        "energy": out.target_energy,
+        "latency": out.target_latency,
+        "breakdown": b,
+        "feasible": ok,
+    }

@@ -270,8 +270,3 @@ class TestRouter:
             for q, tq in list(zip(reqs, t_reqs))[::7]:
                 _assert_decision(t_rt.route(tq, t_env), r_rt.route(q, r_env))
         assert t_rt.route_batch([], t_env) == []
-
-    def test_policy_not_ported_raises(self):
-        with pytest.raises(NotImplementedError):
-            t_router.GreenScaleRouter(t_configs.get_config("h2o-danube-1.8b"),
-                                      policy=object(), device=CPU)

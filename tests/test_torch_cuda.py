@@ -413,3 +413,90 @@ def test_wrappers_launch_on_the_tensors_device(cuda, index):
     np.testing.assert_allclose(y.cpu().numpy(),
                                t_ref.rmsnorm_ref(x, s).cpu().numpy(),
                                **_tol("float32"))
+
+
+FLEET_N = 20_000
+
+
+def _fleet_router(kind, n, device):
+    """The chip smoke's ``xregion``, ``mesoscale`` and ``temporal_joint``
+    routers with their DC-tier caps, at ``n`` requests."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.carbon_intensity import CarbonGrid
+    from repro_torch.core.infrastructure import pack_infra, tpu_fleet
+    from repro_torch.serve import (FleetRouter, OraclePolicy,
+                                   PlacementPolicy, TemporalPolicy)
+
+    n_regions = 128 if kind == "mesoscale" else 4
+    grid = (CarbonGrid.from_sites(n_regions, 8, seed=0, device=device)
+            if kind == "mesoscale" else
+            CarbonGrid.fully_connected(latency_penalty=1.05, device=device))
+    frac = 0.6 if kind == "temporal_joint" else 0.4
+    caps = np.full((n_regions, 3), np.inf)
+    caps[:, 1] = caps[:, 2] = max(1.0, frac * n / (n_regions * 24))
+    oracle = OraclePolicy(pack_infra(tpu_fleet(), device=device))
+    policy = (TemporalPolicy(oracle, caps, max_defer_h=12)
+              if kind == "temporal_joint" else PlacementPolicy(oracle, caps))
+    return FleetRouter(get_config("h2o-danube-1.8b"), grid=grid,
+                       policy=policy, device=device)
+
+
+@pytest.mark.cuda
+class TestCudaFleet:
+    """The decide half on the card makes the CPU's decisions, to the bit."""
+
+    @pytest.mark.parametrize("kind", ["xregion", "mesoscale",
+                                      "temporal_joint"])
+    def test_fleet_router_card_equals_cpu(self, cuda, kind):
+        from repro_torch.serve.streams import (deferrable_stream,
+                                               multi_region_stream)
+
+        stream = (deferrable_stream(FLEET_N, 4) if kind == "temporal_joint"
+                  else multi_region_stream(FLEET_N, 128, seed=1)
+                  if kind == "mesoscale" else multi_region_stream(FLEET_N, 4))
+        out = {}
+        for dev in (cuda, torch.device("cpu")):
+            fr = _fleet_router(kind, FLEET_N, dev)
+            res, state = fr.route_stream_with_state(*stream)
+            assert res.target.device.type == dev.type
+            out[dev.type] = (res, state)
+        (g, gs), (c, cs) = out["cuda"], out["cpu"]
+        for f in ("target", "exec_region", "counts", "feasible",
+                  "shed_count", "spilled_count", "deferred_count"):
+            np.testing.assert_array_equal(getattr(g, f).cpu().numpy(),
+                                          getattr(c, f).numpy(), err_msg=f)
+        for f in ("shed", "shed_pair") + (
+                ("exec_hour", "defer_hours") if kind == "temporal_joint"
+                else ()):
+            np.testing.assert_array_equal(getattr(gs, f).cpu().numpy(),
+                                          getattr(cs, f).numpy(), err_msg=f)
+        np.testing.assert_allclose(g.carbon_g.cpu().numpy(),
+                                   c.carbon_g.numpy(), rtol=1e-5, atol=0)
+        np.testing.assert_allclose(float(g.routed_carbon_g),
+                                   float(c.routed_carbon_g), rtol=1e-5)
+        assert int(g.shed_count) > 0 and int(g.spilled_count) > 0
+
+    def test_windowed_segment_ranks_past_2_16_rows_per_column(self, cuda):
+        from repro_torch.serve.placement import windowed_segment_ranks
+
+        n, n_seg, width = 900_000, 2, 3  # ~135k active rows per cell
+        rng = np.random.default_rng(0)
+        seg = np.sort(rng.integers(0, n_seg, n))
+        choice = rng.integers(0, width, n)
+        active = rng.random(n) < 0.9
+        cell = seg * width + choice
+        starts = np.searchsorted(seg, np.arange(n_seg))
+        ends = np.concatenate([starts[1:], [n]])
+        args = [torch.as_tensor(a) for a in (choice, active, cell, starts,
+                                             ends)]
+        rank_c, tot_c = windowed_segment_ranks(*args, width)
+        rank_g, tot_g = windowed_segment_ranks(
+            *(a.to(cuda) for a in args), width)
+        assert rank_g.dtype == torch.int32 and tot_g.dtype == torch.int32
+        np.testing.assert_array_equal(rank_g.cpu().numpy(), rank_c.numpy())
+        np.testing.assert_array_equal(tot_g.cpu().numpy(), tot_c.numpy())
+        want = np.bincount(cell[active], minlength=n_seg * width)
+        np.testing.assert_array_equal(tot_g.cpu().numpy(), want)
+        assert want.max() > 2**16
+        last = np.nonzero(active)[0][-1]  # the last active row's rank
+        assert int(rank_g[last]) == int((cell[active] == cell[last]).sum()) - 1
