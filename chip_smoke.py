@@ -8,7 +8,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 ``--profile`` adds a torch.profiler breakdown of device time by kernel
 over one warm prefill and the decode steps of each served path (the top
 kernels, and every SSD sub-kernel by name), and of one warm ``xregion``
-and one ``temporal_joint`` route of the decide half (top ops, busy share).
+and one ``temporal_joint`` route of the decide half, and of one warm rolling
+re-plan and one warm queue run of the serving loop (top ops, busy share).
 ``--seed`` (default 0) seeds the fleet handoff's weights and prompts.
 
 Phases (any failure ends the script with a non-zero exit):
@@ -57,6 +58,29 @@ Phases (any failure ends the script with a non-zero exit):
    first hourly window of ``xregion`` that admitted at least 4 requests,
    and 4 of them are served through the full-width danube f32 engine
    (prompt 512, 16 new tokens, counters exact: 24 flash, 49 x 16 RMSNorm).
+6. ``[serve]``: the serving loop on the card, rebuilt from the port's own
+   modules at the sizes of the repo's results (``benchmarks/
+   policy_throughput.py``'s forecast, queue and refit rows), routing
+   ``h2o-danube-1.8b`` requests. ``forecast``: a 1M ``forecast_scenario``
+   stream (sigma_h 0.03) routed immediately (cross-region placement),
+   one-shot error-blind (``TemporalPolicy(max_defer_h=12)``) and by the
+   rolling risk-aware re-planner (``risk_lambda=1.0``, 6-hour steps, an
+   ``EmissionsLedger``); the gate: rolling routes less carbon than
+   immediate. ``queue``: 1M ``diurnal_stream`` requests through
+   ``serve_stream`` on the fully connected grid, placement with unit caps
+   and a pool of 2 workers per (region, DC tier) at 30,000 slots each.
+   ``refit``: a 30k two-day deferrable stream under DC caps of
+   0.6 n / (R 48), ``TemporalPolicy(max_defer_h=16)``, 2-hour steps: the
+   static learned policy (classification without the carbon head, fitted on
+   the host on the design space at hours 0, 4, ..., 20), the same with an
+   ``OnlineRefitter``, and the oracle; the gate: refit <= static x 1.001.
+   One line each (routed gCO2, shed/deferred, steps or refits, warm wall,
+   req/s). Card against CPU on whole streams (50k for the rolling and
+   queue runs, the refit's own 30k): decisions identical, carbon within
+   rtol 1e-5. Then ``admit_windows(queue=...)`` for an engine pinned to the
+   edge-DC tier picks the first serve step of the queue run that admitted
+   4 requests, and they are served through the full-width danube f32 engine
+   (counters exact: 24 flash, 49 x 16 RMSNorm).
 
 The second-last line is one JSON object ``{"kernels": [...]}`` with each
 kernel's launches on the served paths, error, times and bound; the line
@@ -382,6 +406,272 @@ def fleet_phase(torch, dev, results, profile: bool, seed: int) -> None:
           f"{res.exec_region.cpu().numpy()[picked].tolist()}) through "
           f"{DANUBE} f32, prompt ({len(picked)}, {PROMPT}), {NEW} new tokens "
           f"in {wall:.3f} s; launches {launches}")
+    del model, engine
+    torch.cuda.empty_cache()
+
+
+# The serving loop's configurations (benchmarks/policy_throughput.py's
+# forecast, queue and refit rows): 1M requests for the forecast and queue
+# rows, the refit row's own 30k; card against CPU on whole streams of
+# SERVE_CHECK_N (a serve loop is stateful: a prefix of a longer run is not
+# the same run).
+SERVE_N = 1_000_000
+REFIT_N = 30_000
+SERVE_CHECK_N = 50_000
+SERVE_RTOL = 1e-5
+SERVE_FIELDS = ("target", "exec_region", "exec_hour", "shed")
+
+
+def serve_phase(torch, dev, results, profile: bool, seed: int) -> None:
+    """Phase 6: the serving loop on the card, rebuilt from the port's own
+    modules at the sizes of the repo's own results, held against the CPU on
+    whole streams, then one queue step's edge-DC admissions served by the
+    danube engine."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (ALL_PAPER_WORKLOADS, ScenarioAxes,
+                                  build_scenarios, explore, paper_fleet)
+    from repro_torch.core.carbon_intensity import DEFAULT_REGIONS, CarbonGrid
+    from repro_torch.core.constants import Target
+    from repro_torch.core.infrastructure import pack_infra, tpu_fleet
+    from repro_torch.core.schedulers import (ClassificationScheduler,
+                                             build_dataset)
+    from repro_torch.kernels import ops
+    from repro_torch.models import Transformer
+    from repro_torch.serve import (EmissionsLedger, FleetRouter,
+                                   LearnedPolicy, OnlineRefitter,
+                                   OraclePolicy, PlacementPolicy,
+                                   ServeEngine, TemporalPolicy, WorkerPool,
+                                   serve_stream)
+    from repro_torch.serve.streams import (deferrable_stream_multiday,
+                                           diurnal_stream, forecast_scenario)
+
+    cfg = get_config(DANUBE)
+    cpu = torch.device("cpu")
+    R = len(DEFAULT_REGIONS)
+    free = np.full((R, 3), np.inf)
+    infra = lambda d: pack_infra(tpu_fleet(), device=d)
+
+    def warm(fn):
+        """(result, warm wall) of ``fn`` after one warm-up call."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def same(name, got, want, fields=SERVE_FIELDS):
+        """Card == CPU: every decision exactly, carbon within rtol."""
+        for f in fields:
+            bad = int((getattr(got, f) != getattr(want, f)).sum())
+            check(bad == 0, f"{name}: {f} differs card vs CPU ({bad} rows)")
+        check(np.allclose(got.carbon_g, want.carbon_g, rtol=SERVE_RTOL,
+                          atol=0), f"{name}: carbon differs card vs CPU")
+        err = np.max(np.abs(got.carbon_g - want.carbon_g)
+                     / np.maximum(np.abs(want.carbon_g), 1e-30))
+        print(f"[serve] {name} card == CPU on a whole {len(got.target)}-"
+              f"request stream: {', '.join(fields)} identical; carbon max "
+              f"rel err {err:.2e} (rtol {SERVE_RTOL:g})")
+
+    # --- forecast: immediate vs one-shot blind vs rolling risk-aware -------
+    def forecast(n, d):
+        batch, region, t_hours, grid = forecast_scenario(
+            n, DEFAULT_REGIONS, sigma_h=0.03, seed=0, device=d)
+        mk = lambda pol: FleetRouter(cfg, grid=grid, policy=pol, device=d)
+        return dict(
+            immediate=lambda: mk(PlacementPolicy(OraclePolicy(infra(d)),
+                                                 free)).route_stream(
+                batch, region, t_hours),
+            blind=lambda: mk(TemporalPolicy(OraclePolicy(infra(d)), free,
+                                            max_defer_h=12)).route_stream(
+                batch, region, t_hours),
+            rolling=lambda: mk(TemporalPolicy(
+                OraclePolicy(infra(d)), free, max_defer_h=12,
+                risk_lambda=1.0)).route_stream_rolling(
+                batch, region, t_hours, step_h=6, ledger=EmissionsLedger()))
+
+    t0 = time.perf_counter()
+    runs = forecast(SERVE_N, dev)
+    t_stream = time.perf_counter() - t0
+    g = {}
+    for name, fn in runs.items():
+        res, wall = warm(fn)
+        routed = float(res.routed_carbon_g)
+        check(np.isfinite(routed) and routed > 0,
+              f"forecast {name}: non-finite or zero routed carbon")
+        g[name] = routed
+        steps = len(res.steps) if name == "rolling" else 1
+        print(f"[serve] forecast {name}: {SERVE_N} requests, routed "
+              f"{routed:.6g} g, deferred {int(res.deferred_count)}, shed "
+              f"{int(res.shed_count)}, steps {steps}; warm {wall:.4f} s "
+              f"({SERVE_N / wall:.0f} req/s); stream made in {t_stream:.2f} s")
+        if profile and name == "rolling":
+            device_profile(torch, fn, "serve forecast rolling")
+    check(g["rolling"] < g["immediate"],
+          f"rolling risk-aware deferral ({g['rolling']:.6g} g) failed to "
+          f"beat immediate routing ({g['immediate']:.6g} g)")
+    print(f"[serve] forecast gate: rolling {g['rolling']:.6g} g < immediate "
+          f"{g['immediate']:.6g} g (saved {g['immediate'] - g['rolling']:.6g}"
+          f" g; one-shot blind {g['blind']:.6g} g)")
+    del runs
+    same("forecast rolling", forecast(SERVE_CHECK_N, dev)["rolling"](),
+         forecast(SERVE_CHECK_N, cpu)["rolling"](),
+         SERVE_FIELDS + ("defer_hours",))
+    torch.cuda.empty_cache()
+
+    # --- queue: the continuous-batching loop through live worker slots -----
+    def queue(n, d):
+        batch, region, t_hours = diurnal_stream(n, R)
+        fr = FleetRouter(cfg, device=d,
+                         grid=CarbonGrid.fully_connected(
+                             latency_penalty=1.05, device=d),
+                         policy=PlacementPolicy(OraclePolicy(infra(d)),
+                                                np.ones((R, 3))))
+
+        def run():
+            pool = WorkerPool(R, slots_per_worker=30_000.0,
+                              launch_delay_steps=0)
+            for r in range(R):
+                for tier in (1, 2):
+                    pool.launch(r, tier, n=2)
+            return serve_stream(fr, batch, region, t_hours, pool=pool)
+        return fr, run
+
+    fr_q, run_q = queue(SERVE_N, dev)
+    res_q, wall = warm(run_q)
+    check(np.isfinite(res_q.routed_carbon_g) and res_q.routed_carbon_g > 0,
+          "queue: non-finite or zero routed carbon")
+    check(sum(s.routed + s.shed for s in res_q.steps) == SERVE_N
+          and res_q.steps[-1].queued_after == 0,
+          "queue: the conservation ledger does not balance")
+    print(f"[serve] queue: {SERVE_N} requests, routed "
+          f"{res_q.routed_carbon_g:.6g} g, shed {res_q.shed_count}, steps "
+          f"{len(res_q.steps)}, batches "
+          f"{sum(s.n_batches for s in res_q.steps)}; warm {wall:.4f} s "
+          f"({SERVE_N / wall:.0f} req/s)")
+    if profile:
+        device_profile(torch, run_q, "serve queue")
+    same("queue", queue(SERVE_CHECK_N, dev)[1](),
+         queue(SERVE_CHECK_N, cpu)[1](), SERVE_FIELDS + ("step",))
+
+    # --- refit: static learned -> online refit -> oracle -------------------
+    t0 = time.perf_counter()
+    table = build_scenarios(paper_fleet(),
+                            ScenarioAxes(hours=tuple(range(0, 24, 4))),
+                            device=cpu)
+    train = build_dataset(ALL_PAPER_WORKLOADS,
+                          explore(ALL_PAPER_WORKLOADS, table),
+                          table).split()[0]
+    static = LearnedPolicy.fit(ClassificationScheduler(carbon_head=False),
+                               train, device=cpu)
+    t_fit = time.perf_counter() - t0
+    bq, rq, tq = deferrable_stream_multiday(REFIT_N, R, n_days=2)
+    caps = np.full((R, 3), np.inf)
+    caps[:, 1] = caps[:, 2] = max(1.0, 0.6 * REFIT_N / (R * 48))
+
+    def refit_run(kind, d):
+        inner = (OraclePolicy(infra(d)) if kind == "oracle" else
+                 dataclasses.replace(static.to(d), infra=infra(d)))
+        fr = FleetRouter(cfg, device=d, grid=CarbonGrid.fully_connected(
+            latency_penalty=1.05, n_days=2, device=d),
+            policy=TemporalPolicy(inner, caps, max_defer_h=16))
+        refitter = (OnlineRefitter(min_observations=max(256, REFIT_N // 12),
+                                   refit_every=max(512, REFIT_N // 6))
+                    if kind == "refit" else None)
+        return serve_stream(fr, bq, rq, tq, step_h=2, refitter=refitter), \
+            refitter
+
+    g = {}
+    for kind in ("static", "refit", "oracle"):
+        (res, refitter), wall = warm(lambda: refit_run(kind, dev))
+        g[kind] = res.routed_carbon_g
+        check(np.isfinite(g[kind]) and g[kind] > 0,
+              f"refit {kind}: non-finite or zero routed carbon")
+        extra = f", refits {res.refits}" if kind == "refit" else ""
+        print(f"[serve] refit {kind}: {REFIT_N} requests, routed "
+              f"{g[kind]:.6g} g, shed {res.shed_count}, deferred "
+              f"{res.deferred_count}{extra}; warm {wall:.4f} s "
+              f"({REFIT_N / wall:.0f} req/s)")
+        if kind == "refit":
+            res_refit, router_refit = res, refitter.router
+    gap = g["static"] - g["oracle"]
+    closed = (g["static"] - g["refit"]) / max(gap, 1e-9)
+    print(f"[serve] refit: static {g['static']:.6g} g -> refit "
+          f"{g['refit']:.6g} g -> oracle {g['oracle']:.6g} g; {closed:.1%} "
+          f"of the static-to-oracle gap closed; static fit on "
+          f"{len(train.labels)} design-space rows in {t_fit:.2f} s (host)")
+    check(g["refit"] <= g["static"] * 1.001,
+          f"online refit ({g['refit']:.6g} g) routed dirtier than the static "
+          f"learned policy ({g['static']:.6g} g)")
+    res_cpu, _ = refit_run("refit", cpu)
+    flipped = np.nonzero((res_refit.target != res_cpu.target)
+                         | (res_refit.exec_region != res_cpu.exec_region)
+                         | (res_refit.exec_hour != res_cpu.exec_hour))[0]
+    if len(flipped):
+        # the final refitted scorer's tier scores at the flipped rows'
+        # arrival cells: how close to a tie each decision was
+        sub = dataclasses.replace(bq, **{
+            f: np.asarray(getattr(bq, f))[flipped]
+            for f in ("prompt_tokens", "max_new_tokens", "latency_budget_s",
+                      "bytes_per_token", "available", "slack_hours")})
+        w = sub.workload(cfg, device=dev)
+        env = router_refit.env_at(0, 0)
+        hour = torch.as_tensor(np.floor(tq[flipped]).astype(np.int64),
+                               device=dev)
+        ci = router_refit._ci_table[torch.as_tensor(rq[flipped], device=dev)
+                                    .long(), hour]
+        s = router_refit.policy.inner._score_rows(
+            w, ci, env.interference, env.net_slowdown, hour)
+        top2 = torch.sort(s, dim=1).values[:, :2].cpu().numpy()
+        print(f"[serve] refit card vs CPU: {len(flipped)} flipped "
+              f"decisions; top-two score gaps "
+              f"{np.round(top2[:, 1] - top2[:, 0], 9).tolist()[:20]}")
+    check(len(flipped) == 0, f"refit: {len(flipped)} decisions flip card "
+          f"vs CPU")
+    same("refit", res_refit, res_cpu, SERVE_FIELDS + ("step",))
+    check(res_refit.refits == res_cpu.refits,
+          "refit: the refit count differs card vs CPU")
+    torch.cuda.empty_cache()
+
+    # --- the handoff: one queue step's edge-DC admissions -> danube ---------
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = Transformer(cfg, device=dev, dtype=torch.float32, generator=gen)
+    engine = ServeEngine(cfg, model, max_seq=PROMPT + NEW + 8,
+                         tier=int(Target.EDGE_DC), device=dev)
+    batches = fr_q.admit_windows(None, None, engine, queue=res_q)
+    step = next((i for i, idx in enumerate(batches) if len(idx) >= 4), None)
+    check(step is not None, "no serve step admitted 4 edge-DC requests")
+    picked = batches[step][:4]
+    check(bool((res_q.target[picked] == int(Target.EDGE_DC)).all()
+               and not res_q.shed[picked].any()),
+          "admitted requests are not committed to the edge DC")
+    prompt = torch.randint(0, cfg.vocab_size, (4, PROMPT), generator=gen,
+                           device=dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompt, max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    want = dict({k: 0 for k in launches}, flash_attention=cfg.n_layers,
+                fused_rmsnorm=(2 * cfg.n_layers + 1) * NEW)
+    check(launches == want, f"serve handoff: launch counts {launches}, "
+          f"expected {want}")
+    check(tuple(tokens.shape) == (4, NEW) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+        "serve handoff: tokens")
+    for name, r in results.items():
+        r["launches_by_path"][f"queue -> {DANUBE}"] = launches[name]
+    print(f"[serve] handoff: serve step {int(res_q.step[picked[0]])} h "
+          f"admitted {len(batches[step])} edge-DC requests of the queue run; "
+          f"served requests {picked.tolist()} (exec regions "
+          f"{res_q.exec_region[picked].tolist()}) through {DANUBE} f32, "
+          f"prompt ({len(picked)}, {PROMPT}), {NEW} new tokens in "
+          f"{wall:.3f} s; launches {launches}")
     del model, engine
     torch.cuda.empty_cache()
 
@@ -845,6 +1135,11 @@ def main() -> None:
     # --- phase 5: the decide half on the card, then the handoff ---------------
     fleet_phase(torch, dev, results, profile, seed)
     print(f"[chip_smoke] fleet phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # --- phase 6: the serving loop on the card, then the handoff ---------------
+    serve_phase(torch, dev, results, profile, seed)
+    print(f"[chip_smoke] serve phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # --- result lines ---------------------------------------------------------

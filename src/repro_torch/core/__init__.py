@@ -36,6 +36,14 @@ from repro_torch.core.carbon_model import (
     route_one,
     total_cf_from_factors,
 )
+from repro_torch.core.design_space import (
+    DesignSpaceResult,
+    ScenarioAxes,
+    ScenarioTable,
+    build_scenarios,
+    explore,
+    scenario_mask,
+)
 from repro_torch.core.infrastructure import (
     ComputeSpec,
     Fleet,
@@ -45,6 +53,22 @@ from repro_torch.core.infrastructure import (
     paper_fleet,
     tpu_fleet,
 )
-from repro_torch.core.workloads import Workload, batch_workloads
+from repro_torch.core.runtime_variance import (
+    StochasticVariance,
+    VarianceScenario,
+    scenario_multipliers,
+)
+from repro_torch.core.workloads import (
+    AI_WORKLOADS,
+    ALL_PAPER_WORKLOADS,
+    ARVR_WORKLOADS,
+    GAME_WORKLOADS,
+    Category,
+    Workload,
+    WorkloadInfo,
+    batch_workloads,
+    by_name,
+    stack_workloads,
+)
 
 __all__ = [k for k in dir() if not k.startswith("_")]

@@ -4,8 +4,8 @@ the device-battery CI under a charging behaviour.
 Port of ``Grid``, ``ChargingBehavior``, the numpy mix builders,
 ``GridTrace``, ``grid_trace``, ``all_grid_traces``, ``charging_profile``,
 ``mobile_carbon_intensity``, ``RegionSpec``, ``DEFAULT_REGIONS``,
-``region_power_budgets``, ``CarbonGrid`` and ``site_regions`` from the
-reference ``core/carbon_intensity.py``. The mixes are built in float64
+``region_power_budgets``, ``CarbonGrid``, ``site_regions``, ``perturb_mix``
+and ``ci_of_mix`` from the reference ``core/carbon_intensity.py``. The mixes are built in float64
 numpy exactly as there and then held as float32 tensors, as
 ``jnp.asarray`` stores them with x64 off.
 """
@@ -622,3 +622,42 @@ def site_regions(n_sites: int) -> tuple[RegionSpec, ...]:
     round-robin anchor assignment."""
     return tuple(RegionSpec(f"site{i:03d}", Grid(i % len(Grid)))
                  for i in range(n_sites))
+
+
+# --- Uncertainty injection (paper §5.2) ---------------------------------------
+
+
+def perturb_mix(mix: torch.Tensor, beta: torch.Tensor, u: torch.Tensor,
+                scale: float = 0.168) -> torch.Tensor:
+    """Perturbed generation mixes modelling renewable fluctuation.
+
+    Paper §5.2: solar fluctuation ~ Beta, wind fluctuation ~ Weibull, at
+    ~16.8% of carbon-intensity fluctuation. Solar/wind columns are scaled
+    by mean-1 factors, natural gas absorbs the imbalance and the mix is
+    renormalized. The reference draws with ``jax.random``; here the draws
+    are arguments, each of shape ``(n_samples,) + mix.shape[:-1]``:
+    ``beta`` Beta(5, 5) and ``u`` uniform on [1e-6, 1) (the Weibull's
+    inverse-CDF input). Returns ``(n_samples,) + mix.shape``."""
+    dev = mix.device
+    beta = torch.as_tensor(beta, dtype=torch.float32, device=dev) * 2.0
+    u = torch.as_tensor(u, dtype=torch.float32, device=dev)
+    weib = (-torch.log(u)) ** 0.5 / 0.8862
+    solar_f = 1.0 + scale * (beta - 1.0) / 0.30
+    wind_f = 1.0 + scale * (weib - 1.0) / 0.52
+    out = mix.expand(tuple(beta.shape) + (mix.shape[-1],)).clone()
+    out[..., EnergySource.SOLAR] *= torch.clamp_min(solar_f, 0.0)
+    out[..., EnergySource.WIND] *= torch.clamp_min(wind_f, 0.0)
+    gas = EnergySource.NATURAL_GAS
+    resid = 1.0 - (out.sum(-1) - out[..., gas])
+    out[..., gas] = torch.clamp_min(resid, 0.0)
+    return out / out.sum(-1, keepdim=True)
+
+
+def ci_of_mix(mix: torch.Tensor) -> torch.Tensor:
+    """Carbon intensity of a generation mix (last axis = sources), as an
+    ordered sum over the sources (the same bits on the card and the CPU)."""
+    ci = torch.tensor(SOURCE_CI_LIST, dtype=torch.float32, device=mix.device)
+    out = mix[..., 0] * ci[0]
+    for k in range(1, mix.shape[-1]):
+        out = out + mix[..., k] * ci[k]
+    return out

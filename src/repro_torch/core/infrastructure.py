@@ -1,15 +1,19 @@
 """Edge-cloud infrastructure specifications (paper §2, §4.2, Tables 7-8).
 
-Port of the fleet specs and ``pack_infra`` from the reference
-``core/infrastructure.py``: the same two fleets (``paper_fleet`` for the
-figure reproductions, ``tpu_fleet`` for the LM workloads) packed into a
-dataclass of float32 tensors that the Table-1 model consumes.
+Port of the fleet specs, ``pack_infra`` and the per-tier envelopes
+(``TierEnvelope``, ``tpu_envelope``, ``paper_envelope``) from the
+reference ``core/infrastructure.py``: the same two fleets (``paper_fleet``
+for the figure reproductions, ``tpu_fleet`` for the LM workloads) packed
+into a dataclass of float32 tensors that the Table-1 model consumes. The
+envelopes are the simulated fleet's tier data (host numpy), not the
+hardware this package runs on.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core.constants import (
@@ -278,3 +282,66 @@ def pack_infra(fleet: Fleet, embodied_model: str = "act",
         n_user_dc=f(fleet.n_user_dc),
         n_batch_dc=f(fleet.n_batch_dc),
     )
+
+
+# ------------------------------------------------------------------------------
+# Per-tier TDP/VRAM envelopes: watt-shaped heterogeneous-fleet capacity
+# ------------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TierEnvelope:
+    """Per-tier accelerator envelopes of the simulated fleet: TDP and VRAM
+    of one server unit, indexed [mobile, edge_dc, hyper_dc].
+
+    ``tdp_w``       watts one server of the tier draws at its power cap.
+    ``vram_bytes``  bytes of accelerator memory one server exposes — the
+                    KV-cache budget bounding concurrent decode states
+                    (``np.inf`` = unbounded).
+    """
+
+    name: str
+    tdp_w: tuple[float, float, float]
+    vram_bytes: tuple[float, float, float]
+
+    def servers_for_power(self, power_budget_w) -> np.ndarray:
+        """Whole servers a per-tier power budget (W) energizes:
+        ``floor(budget / tdp_w)`` elementwise over a (..., 3) budget array;
+        ``np.inf`` budgets stay ``np.inf``."""
+        b = np.asarray(power_budget_w, np.float64)
+        tdp = np.asarray(self.tdp_w, np.float64)
+        if (tdp <= 0).any():
+            raise ValueError("tdp_w entries must be positive")
+        return np.where(np.isinf(b), np.inf, np.floor(b / tdp))
+
+    def kv_slots(self, tier: int, slot_bytes: float) -> int | None:
+        """Concurrent KV-cache slots tier ``tier``'s VRAM holds at
+        ``slot_bytes`` per decode slot; None when that VRAM is ``np.inf``.
+        At least 1 — a server that exists serves."""
+        v = float(self.vram_bytes[tier])
+        if np.isinf(v):
+            return None
+        if slot_bytes <= 0:
+            raise ValueError("slot_bytes must be positive")
+        return max(1, int(v // float(slot_bytes)))
+
+
+def tpu_envelope() -> TierEnvelope:
+    """``tpu_fleet`` tier envelopes: phone NPU sharing ~8 GiB of SoC memory,
+    a v5e-8 slice (8 x 16 GiB HBM) and a v5e-256 pod (256 x 16 GiB HBM)."""
+    gib = 1024.0**3
+    return TierEnvelope(
+        name="tpu-v5e",
+        tdp_w=(6.0, 8 * TPU_V5E_TDP_W + 400.0,
+               256 * TPU_V5E_TDP_W + 8000.0),
+        vram_bytes=(8.0 * gib, 8 * 16.0 * gib, 256 * 16.0 * gib))
+
+
+def paper_envelope() -> TierEnvelope:
+    """``paper_fleet`` tier envelopes: Pixel 3 (4 GiB shared), p3.2xlarge
+    (one V100, 16 GiB HBM), p4d.24xlarge (8 x A100-40GiB)."""
+    gib = 1024.0**3
+    return TierEnvelope(
+        name="paper",
+        tdp_w=(3.797, 693.5, 7000.0),
+        vram_bytes=(4.0 * gib, 16.0 * gib, 8 * 40.0 * gib))

@@ -89,6 +89,29 @@ class MLP(nn.Module):
         return mlp(self.w_gate, self.w_up, self.w_down, x)
 
 
+# --- fc-GELU-fc MLP (granite, whisper) ----------------------------------------------
+
+
+class GeluMLP(nn.Module):
+    """``gelu(x @ w1 + b1) @ w2 + b2`` with the tanh approximation, which
+    is ``jax.nn.gelu``'s default; the biases start at zero."""
+
+    def __init__(self, d: int, d_ff: int, *, device,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.w1 = dense_init(d, d_ff, **kw)
+        self.b1 = nn.Parameter(torch.zeros((d_ff,), device=device,
+                                           dtype=dtype))
+        self.w2 = dense_init(d_ff, d, **kw)
+        self.b2 = nn.Parameter(torch.zeros((d,), device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(x @ self.w1 + self.b1, approximate="tanh") @ self.w2 \
+            + self.b2
+
+
 # --- Rotary position embeddings ---------------------------------------------------
 
 

@@ -6,12 +6,12 @@ leaf names and (d_in, d_out) orientation; the reference stacks each
 sub-layer position over super-blocks for ``lax.scan``, the port keeps one
 ``DecoderLayer`` per layer in a ``ModuleList`` and ``load_jax_params``
 unstacks. Each layer follows its ``SubLayerKind``: an attention or Mamba-2
-mixer, then a dense SwiGLU, an MoE or no FF. Prefill attention, the SSD
-scan, the expert FF and every RMSNorm go through the CUDA kernels (their
-plain versions on CPU tensors); the expert FF does in decode too. Only
-``prefill`` takes another kernel set, so that a check can hold it against
-the plain versions on the card; ``forward`` and ``decode_step`` always use
-the kernels. HYBRID (jamba), encoder-decoder (whisper) and M-RoPE
+mixer, then a dense SwiGLU (fc-GELU-fc when ``cfg.mlp_gelu``), an MoE or
+no FF. Prefill attention, the SSD scan, the expert FF and every RMSNorm go
+through the CUDA kernels (their plain versions on CPU tensors); the expert
+FF does in decode too. Only ``prefill`` takes another kernel set, so that
+a check can hold it against the plain versions on the card; ``forward``
+and ``decode_step`` always use the kernels. HYBRID (jamba), encoder-decoder (whisper) and M-RoPE
 (qwen2-vl) models are not ported yet.
 
 Quirks kept from the reference: ``prefill`` materialises the caches in
@@ -35,7 +35,13 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import KERNELS, KernelSet
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import KVCache
-from repro_torch.models.layers import MLP, RMSNorm, dense_init, embed_init
+from repro_torch.models.layers import (
+    MLP,
+    GeluMLP,
+    RMSNorm,
+    dense_init,
+    embed_init,
+)
 from repro_torch.models.mamba2 import (
     Mamba2,
     SSMState,
@@ -93,8 +99,8 @@ class DecodeState:
 
 class DecoderLayer(nn.Module):
     """One pre-norm layer of the given kind: ``norm1`` + an ``attn`` or
-    ``mamba`` mixer, then ``norm2`` + an ``ff`` (SwiGLU) or ``moe`` FF, or
-    no FF (the SSM family)."""
+    ``mamba`` mixer, then ``norm2`` + an ``ff`` (SwiGLU, or fc-GELU-fc when
+    ``cfg.mlp_gelu``) or ``moe`` FF, or no FF (the SSM family)."""
 
     def __init__(self, cfg: ModelConfig, kind: SubLayerKind, *, device,
                  dtype: torch.dtype, generator: torch.Generator | None):
@@ -109,7 +115,8 @@ class DecoderLayer(nn.Module):
         if kind.ff is not None:
             self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         if kind.ff == "dense":
-            self.ff = MLP(cfg.d_model, cfg.d_ff, **kw)
+            mlp_cls = GeluMLP if cfg.mlp_gelu else MLP
+            self.ff = mlp_cls(cfg.d_model, cfg.d_ff, **kw)
         elif kind.ff == "moe":
             self.moe = MoE(cfg, **kw)
 

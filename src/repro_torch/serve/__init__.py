@@ -1,6 +1,7 @@
-"""Serving layer of the port: the routers, the routing policies, the
-placement and temporal admission engines, synthetic streams and the LM
-engine."""
+"""Serving layer of the port: the routers, the routing policies (oracle,
+learned, capacity-capped), the placement and temporal admission engines,
+the rolling forecast re-planner, the continuous-batching request queue
+with online policy refit, synthetic streams and the LM engine."""
 
 from repro_torch.core.carbon_intensity import (
     DEFAULT_REGIONS,
@@ -9,6 +10,14 @@ from repro_torch.core.carbon_intensity import (
     site_regions,
 )
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.forecast import (
+    EmissionsLedger,
+    LedgerStep,
+    RollingRouteResult,
+    pad_pow2,
+    slice_batch,
+)
+from repro_torch.serve.online import OnlineRefitter, ReplayBuffer
 from repro_torch.serve.placement import (
     PlacementPolicy,
     PlacementState,
@@ -18,8 +27,20 @@ from repro_torch.serve.placement import (
 from repro_torch.serve.policy import (
     CapacityLimiter,
     CapacityState,
+    LearnedPolicy,
     OraclePolicy,
     RoutingPolicy,
+    policy_features,
+)
+from repro_torch.serve.queue import (
+    BatchFormer,
+    FormedBatch,
+    QueueServeResult,
+    QueueStep,
+    RequestQueue,
+    WorkerPool,
+    admit_batches,
+    serve_stream,
 )
 from repro_torch.serve.router import (
     FleetRouteResult,

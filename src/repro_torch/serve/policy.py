@@ -3,6 +3,9 @@ to capacity-capped fleet simulation (port of ``src/repro/serve/policy.py``).
 
   * ``OraclePolicy``    — exhaustive Table-1 evaluation per request, with
     ``metric="carbon"/"latency"/"energy"``.
+  * ``LearnedPolicy``   — a fitted scheduler of ``repro_torch.core.
+    schedulers`` scoring live streams from feature rows (``feature_rows``,
+    ``policy_features``); fitted on the host, scored on the router's device.
   * ``CapacityLimiter`` — per-(region, tier) request caps per hourly window,
     spilling each over-cap request to its next-best feasible tier. The
     reference folds windows with ``lax.scan``; here a Python loop over
@@ -17,31 +20,33 @@ Protocol, as in the reference (``env.ci`` is per-request (N, 5)):
       -> (targets, new_state)``.
   ``initial_state(n_regions, n_requests)``.
 
-Factorized hooks (``OraclePolicy``): ``scores_from_factors`` and
-``pair_scores_from_factors`` score arbitrary candidate CI rows from one
-``carbon_model.EnergyFactors`` batch. The einsums of the reference are
-ordered elementwise sums here (``carbon_model._dot_last``), so the card and
-the CPU score to the bit.
+Factorized hooks (``OraclePolicy``, ``LearnedPolicy``):
+``scores_from_factors`` and ``pair_scores_from_factors`` score arbitrary
+candidate CI rows from one ``carbon_model.EnergyFactors`` batch. The
+einsums of the reference are ordered elementwise sums here
+(``carbon_model._dot_last``), so the card and the CPU score to the bit.
 
-``LearnedPolicy`` needs the scheduler port (ROADMAP item 7); the routers
-refuse any policy that is not a ``RoutingPolicy`` of this package.
-``_gate_hop_broken``, the learned policies' WAN-hop gate, is ported ahead
-of them. ``axis_name`` (the sharded path, item 9) raises when not None.
+The routers refuse any policy that is not a ``RoutingPolicy`` of this
+package. ``axis_name`` (the sharded path, item 9) raises when not None.
 """
 
 from __future__ import annotations
 
 import abc
 import dataclasses
-from typing import Any
+import math
+from typing import Any, Callable
 
+import numpy as np
 import torch
 
 from repro_torch.core import carbon_model
 from repro_torch.core.carbon_model import Environment, RouteOutputs
 from repro_torch.core.constants import N_TARGETS
 from repro_torch.core.infrastructure import InfraParams
+from repro_torch.core.schedulers import SchedulerDataset, load_fitted_params
 from repro_torch.core.workloads import Workload
+from repro_torch.device import resolve_device
 
 INF = float("inf")
 
@@ -251,6 +256,199 @@ def _gate_hop_broken(s, factors, w, extra_latency):
         return torch.where(ok_base[None] & ~ok_hop, inf, s)
     ok_hop = carbon_model.qos_feasible_from_factors(factors, w, extra_latency)
     return torch.where(ok_base & ~ok_hop, inf, s)
+
+
+#: feature columns of the 3 CI components that relocate with a cross-region
+#: placement, [edge_dc, core_net, hyper_dc] (the 5 CI columns follow the 6
+#: workload columns)
+_CI_DC_COLS = slice(8, 11)
+
+
+#: float32(1 / ln 10): XLA's float32 ``log10`` is ``log(x)`` times this
+_INV_LN10 = float(np.float32(1.0 / math.log(10.0)))
+
+
+def _log10_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log10`` formed as the reference's XLA forms it, ``log(x) *
+    float32(1/ln 10)``, with ``log`` evaluated in float64 and rounded once:
+    the card's and the CPU's float32 ``log`` may differ by an ulp, their
+    float64 results rounded to float32 practically never do."""
+    return torch.log(x.double()).float() * _INV_LN10
+
+
+def feature_rows(w: Workload, ci: torch.Tensor,
+                 interference: torch.Tensor | None = None,
+                 net_slowdown: torch.Tensor | None = None,
+                 hour: torch.Tensor | None = None,
+                 emb_lca: bool = False) -> torch.Tensor:
+    """(N, 19) raw (un-standardized) float32 feature rows from explicit CI
+    rows, column for column as ``schedulers.build_dataset``: workload
+    descriptor, scenario CI/variance, hour-of-day harmonics, embodied-model
+    flag. ``ci`` is (5,) shared or (N, 5) per request; ``hour`` any absolute
+    horizon hour (the harmonics wrap daily). Every division is by a tensor
+    (CUDA divides by a Python scalar through its reciprocal) and the
+    transcendentals are rounded from float64 (``_log10_f32``), so the card
+    and the CPU build the same rows."""
+    n = w.flops.shape[0]
+    dev = w.flops.device
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    f_w = torch.stack([
+        _log10_f32(w.flops + 1.0),
+        _log10_f32(w.mem_bytes + 1.0),
+        _log10_f32(w.data_in + 1.0),
+        _log10_f32(w.data_out + 1.0),
+        _log10_f32(w.latency_req + 1e-6),
+        w.continuous,
+    ], dim=-1)
+    bcast = lambda a, k: f32(a).reshape(-1, k).expand(n, k)
+    if interference is None:
+        interference = torch.ones((3,), dtype=torch.float32, device=dev)
+    if net_slowdown is None:
+        net_slowdown = torch.ones((2,), dtype=torch.float32, device=dev)
+    h = (torch.zeros((n,), dtype=torch.float32, device=dev) if hour is None
+         else f32(hour).expand(n))
+    ang = (h * float(2.0 * math.pi)) / f32(24.0)
+    return torch.cat([
+        f_w,
+        bcast(ci, 5) / f32(100.0),
+        bcast(interference, 3),
+        bcast(net_slowdown, 2),
+        torch.sin(ang.double()).float()[:, None],
+        torch.cos(ang.double()).float()[:, None],
+        torch.full((n, 1), 1.0 if emb_lca else 0.0, dtype=torch.float32,
+                   device=dev),
+    ], dim=-1)
+
+
+def policy_features(w: Workload, env: Environment, hour=None,
+                    emb_lca: bool = False) -> torch.Tensor:
+    """``feature_rows`` of a live stream's Environment (the sweep path)."""
+    return feature_rows(w, env.ci, env.interference, env.net_slowdown,
+                        hour, emb_lca)
+
+
+@dataclasses.dataclass
+class LearnedPolicy(RoutingPolicy):
+    """A fitted scheduler routing live streams.
+
+    Built with ``LearnedPolicy.fit(scheduler, train, device=...)``: the
+    scheduler's ``fit_params`` runs on the host (CPU float32, the same fit
+    for every device), its static ``torch_scores(params, X)`` becomes the
+    per-request scorer, and the training set's standardization statistics
+    travel along. The factorized hooks score candidate (region, hour)
+    placements by re-featurizing their CI rows; CI-linear schedulers
+    (``ci_linear``) collapse the candidate axis to one ordered sum against
+    the probed per-column sensitivities ``ci_sens``, others re-run the
+    scorer per candidate region (the reference's ``jax.vmap``). ``infra``
+    is only needed to build ``EnergyFactors`` outside a ``FleetRouter``."""
+
+    params: Any
+    score_fn: Callable[[Any, torch.Tensor], torch.Tensor]
+    feat_mean: torch.Tensor
+    feat_std: torch.Tensor
+    emb_lca: bool = False
+    name: str = "learned"
+    infra: Any = None
+    #: (F, 3) score sensitivity to each standardized feature column, probed
+    #: on the host at fit time for CI-linear schedulers; None = generic
+    #: per-candidate inference in the pair hook
+    ci_sens: torch.Tensor | None = None
+
+    @classmethod
+    def fit(cls, scheduler, train: SchedulerDataset, emb_lca: bool = False,
+            infra: Any = None, *, device: str | torch.device = "cuda"
+            ) -> "LearnedPolicy":
+        """Fit ``scheduler`` on the host and wrap the fitted scorer as a
+        policy on ``device``. CI-linear schedulers get ``ci_sens`` probed
+        on the host too: ``s[1:] - s[:1]`` over the zero row and the unit
+        rows, in float32 as the reference does."""
+        dev = resolve_device(device)
+        if train.feat_mean is None or train.feat_std is None:
+            raise ValueError(
+                "dataset has no feature statistics — rebuild it with "
+                "schedulers.build_dataset (feat_mean/feat_std are required "
+                "to featurize live streams)")
+        params = load_fitted_params(scheduler.fit_params(train),
+                                    device="cpu")
+        ci_sens = None
+        if getattr(scheduler, "ci_linear", False):
+            n_feat = int(np.asarray(train.feat_mean).shape[0])
+            probes = torch.cat([torch.zeros((1, n_feat)), torch.eye(n_feat)])
+            s = type(scheduler).torch_scores(params, probes)
+            ci_sens = s[1:] - s[:1]
+        f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32)
+        return cls(name=f"learned-{scheduler.name}", params=params,
+                   score_fn=type(scheduler).torch_scores,
+                   feat_mean=f32(train.feat_mean),
+                   feat_std=f32(train.feat_std), emb_lca=emb_lca,
+                   infra=infra, ci_sens=ci_sens).to(dev)
+
+    def to(self, device: str | torch.device) -> "LearnedPolicy":
+        """A copy with params, statistics and sensitivities on ``device``."""
+        dev = resolve_device(device)
+        mv = lambda t: None if t is None else t.to(dev)
+        return dataclasses.replace(
+            self, params={k: v.to(dev) for k, v in self.params.items()},
+            feat_mean=mv(self.feat_mean), feat_std=mv(self.feat_std),
+            ci_sens=mv(self.ci_sens))
+
+    def _score_rows(self, w, ci, interference, net_slowdown, hour
+                    ) -> torch.Tensor:
+        """(N, 3) raw scheduler scores under explicit CI rows + context."""
+        X = feature_rows(w, ci, interference, net_slowdown, hour,
+                         self.emb_lca)
+        X = (X - self.feat_mean) / self.feat_std
+        return self.score_fn(self.params, X)
+
+    def scores(self, w, env, avail, *, hour=None):
+        s = self._score_rows(w, env.ci, env.interference, env.net_slowdown,
+                             hour)
+        return torch.where(avail, s, torch.full_like(s, INF))
+
+    def scores_from_factors(self, factors, w, ci, avail, extra_latency=0.0,
+                            *, hour=None, interference=None,
+                            net_slowdown=None):
+        """``scores`` under arbitrary per-request CI rows; ``factors`` only
+        enters through the WAN-hop gate (a candidate whose hop breaks an
+        otherwise-feasible tier is refused)."""
+        s = self._score_rows(w, ci, interference, net_slowdown, hour)
+        s = torch.where(avail, s, torch.full_like(s, INF))
+        return _gate_hop_broken(s, factors, w, extra_latency)
+
+    def pair_scores_from_factors(self, factors, w, home_ci, cand_ci_dc,
+                                 avail, extra_latency=None, *, hour=None,
+                                 interference=None, net_slowdown=None):
+        """(R, N, 3) ``scores_from_factors`` over candidate regions:
+        ``home_ci`` (N, 5) anchors [mobile, edge_net], ``cand_ci_dc``
+        (R, N, 3) carries each candidate's relocating columns. CI-linear
+        schedulers score the home row once and add ``delta_ci . ci_sens``
+        (the reference's einsum, as an ordered sum over the 3 columns);
+        others re-run the scorer per candidate region."""
+        if self.ci_sens is not None:
+            s0 = self._score_rows(w, home_ci, interference, net_slowdown,
+                                  hour)  # (N, 3)
+            # features carry ci/100 standardized by feat_std: a candidate
+            # differs from home only in the relocating CI columns
+            std = self.feat_std[_CI_DC_COLS]
+            scale = std.new_tensor(1.0) / (100.0 * std)  # (3,)
+            delta = (cand_ci_dc - home_ci[None, :, 2:]) * scale  # (R, N, 3)
+            sens = self.ci_sens[_CI_DC_COLS]  # (3, 3)
+            s = s0[None] + _rowdot3(delta, sens)
+        else:
+            s = torch.stack([
+                self._score_rows(w, torch.cat([home_ci[:, :2], ci_dc], dim=1),
+                                 interference, net_slowdown, hour)
+                for ci_dc in cand_ci_dc])  # (R, N, 3)
+        s = torch.where(avail[None], s, torch.full_like(s, INF))
+        return _gate_hop_broken(s, factors, w, extra_latency)
+
+
+def _rowdot3(delta: torch.Tensor, sens: torch.Tensor) -> torch.Tensor:
+    """``einsum("rnc,ct->rnt", delta, sens)`` as an ordered sum over c."""
+    out = delta[..., 0:1] * sens[0]
+    for c in range(1, delta.shape[-1]):
+        out = out + delta[..., c:c + 1] * sens[c]
+    return out
 
 
 # ---------------------------------------------------------------------------

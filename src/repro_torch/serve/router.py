@@ -10,8 +10,9 @@ the Table-1 carbon oracle) picks its tier; ``FleetRouter`` routes a
 (region, hour)-tagged stream against a ``CarbonGrid`` and charges the
 decisions at actual CI. The reference's jit and buffer donation have no
 counterpart here: ``_fleet_route`` is the same arithmetic as eager torch
-on the router's device. The sharded path (``mesh=``, ROADMAP item 9), the
-rolling re-planner and queue-based admission (item 6) raise.
+on the router's device. ``route_stream_rolling`` delegates to
+``serve.forecast`` and ``admit_windows(queue=...)`` to ``serve.queue``.
+The sharded path (``mesh=``, ROADMAP item 9) raises.
 """
 
 from __future__ import annotations
@@ -150,14 +151,12 @@ def _decisions_from_outputs(out: RouteOutputs) -> list[RouteDecision]:
 
 
 def _check_policy(policy) -> None:
-    """Only the port's own policies decide here (a learned policy waits for
-    ROADMAP item 7)."""
+    """Only the port's own policies decide here."""
     if policy is not None and not isinstance(policy, RoutingPolicy):
         raise NotImplementedError(
             f"{type(policy).__name__} is not a repro_torch RoutingPolicy; "
-            "the port routes with OraclePolicy, CapacityLimiter, "
-            "PlacementPolicy and TemporalPolicy (learned policies are "
-            "ROADMAP item 7)")
+            "the port routes with OraclePolicy, LearnedPolicy, "
+            "CapacityLimiter, PlacementPolicy and TemporalPolicy")
 
 
 @dataclasses.dataclass
@@ -247,8 +246,10 @@ def _warn_admit_windows() -> None:
         warnings.warn(
             "hourly-bucketed admit_windows is deprecated: requests arrive "
             "continuously, not in hour buckets. Continuous-batching "
-            "admission (queue=) arrives with the serving-loop port "
-            "(ROADMAP item 6).", DeprecationWarning, stacklevel=3)
+            "admission: run repro_torch.serve.queue.serve_stream and pass "
+            "its QueueServeResult as queue= (or call "
+            "repro_torch.serve.queue.admit_batches directly).",
+            DeprecationWarning, stacklevel=3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -572,25 +573,30 @@ class FleetRouter:
                                  state, order, inv_order, slack, cap_scale,
                                  used0)
 
-    def route_stream_rolling(self, batch, region, t_hours, *, step_h: int = 6,
+    def route_stream_rolling(self, batch: RequestBatch, region: np.ndarray,
+                             t_hours: np.ndarray, *, step_h: int = 6,
                              ledger=None):
-        """Rolling re-planned routing arrives with the forecast/serving-loop
-        port."""
-        raise NotImplementedError(
-            "route_stream_rolling is not ported yet: ROADMAP item 6 "
-            "(repro.serve.forecast)")
+        """Rolling re-planned routing: plan the stream in ``step_h``-hour
+        steps, holding deferred work in a carry-over queue re-scored each
+        step as ``CarbonGrid.roll`` advances the forecast, with an optional
+        ``EmissionsLedger``. Requires a ``TemporalPolicy``; returns a
+        ``repro_torch.serve.forecast.RollingRouteResult``."""
+        from repro_torch.serve import forecast
+        return forecast.route_stream_rolling(self, batch, region, t_hours,
+                                             step_h=step_h, ledger=ledger)
 
     def admit_windows(self, res: FleetRouteResult, t_hours: np.ndarray,
                       engine, n_windows: int = 24, *,
                       queue=None) -> list[np.ndarray]:
         """Per hourly window, the stream indices ``engine`` admits
         (``ServeEngine.admit`` over the routed targets, sliced by arrival
-        hour). Deprecated, as in the reference; ``queue=`` is ROADMAP
-        item 6."""
+        hour). Deprecated, as in the reference. With ``queue=`` (a
+        ``QueueServeResult`` of ``serve_stream``) it returns one index
+        array per serve step instead (``serve.queue.admit_batches``;
+        ``res`` and ``t_hours`` are ignored)."""
         if queue is not None:
-            raise NotImplementedError(
-                "admit_windows(queue=...) needs the continuous-batching "
-                "queue: ROADMAP item 6 (repro.serve.queue)")
+            from repro_torch.serve.queue import admit_batches
+            return admit_batches(queue, engine)
         _warn_admit_windows()
         hour = np.floor(np.asarray(t_hours)).astype(np.int64) % n_windows
         mask = engine.admit(res.target).cpu().numpy()

@@ -6,6 +6,8 @@ skips on a host without a CUDA device. On the card (no JAX needed):
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -500,3 +502,126 @@ class TestCudaFleet:
         assert want.max() > 2**16
         last = np.nonzero(active)[0][-1]  # the last active row's rank
         assert int(rank_g[last]) == int((cell[active] == cell[last]).sum()) - 1
+
+
+SERVE_N = 20_000
+SERVE_FIELDS = ("target", "exec_region", "exec_hour", "defer_hours", "shed")
+
+
+def _assert_commitments_equal(g, c, fields=SERVE_FIELDS):
+    for f in fields:
+        bad = int((getattr(g, f) != getattr(c, f)).sum())
+        assert bad == 0, f"{f}: {bad} entries differ card vs CPU"
+    np.testing.assert_allclose(g.carbon_g, c.carbon_g, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(g.routed_carbon_g, c.routed_carbon_g,
+                               rtol=1e-5)
+
+
+@pytest.mark.cuda
+class TestCudaServe:
+    """The serving loop on the card commits what the CPU commits: the
+    rolling re-planner, the continuous-batching queue and the online refit
+    (``chip_smoke.py``'s ``[serve]`` recipes at 20k requests)."""
+
+    def test_rolling_card_equals_cpu(self, cuda):
+        from repro_torch.configs import get_config
+        from repro_torch.core.carbon_intensity import DEFAULT_REGIONS
+        from repro_torch.core.infrastructure import pack_infra, tpu_fleet
+        from repro_torch.serve import (EmissionsLedger, FleetRouter,
+                                       OraclePolicy, TemporalPolicy)
+        from repro_torch.serve.streams import forecast_scenario
+
+        out = {}
+        for dev in (cuda, torch.device("cpu")):
+            batch, region, t_hours, grid = forecast_scenario(
+                SERVE_N, DEFAULT_REGIONS, sigma_h=0.03, seed=0, device=dev)
+            fr = FleetRouter(get_config("h2o-danube-1.8b"), grid=grid,
+                             device=dev, policy=TemporalPolicy(
+                                 OraclePolicy(pack_infra(tpu_fleet(),
+                                                         device=dev)),
+                                 np.full((4, 3), np.inf), max_defer_h=12,
+                                 risk_lambda=1.0))
+            out[dev.type] = fr.route_stream_rolling(
+                batch, region, t_hours, step_h=6, ledger=EmissionsLedger())
+        _assert_commitments_equal(out["cuda"], out["cpu"])
+        assert out["cuda"].deferred_count > 0
+
+    @pytest.mark.parametrize("slots", [30_000.0, 40.0])
+    def test_queue_card_equals_cpu(self, cuda, slots):
+        from repro_torch.configs import get_config
+        from repro_torch.core.carbon_intensity import CarbonGrid
+        from repro_torch.core.infrastructure import pack_infra, tpu_fleet
+        from repro_torch.serve import (FleetRouter, OraclePolicy,
+                                       PlacementPolicy, WorkerPool,
+                                       serve_stream)
+        from repro_torch.serve.streams import diurnal_stream
+
+        batch, region, t_hours = diurnal_stream(SERVE_N, 4)
+        out = {}
+        for dev in (cuda, torch.device("cpu")):
+            fr = FleetRouter(
+                get_config("h2o-danube-1.8b"), device=dev,
+                grid=CarbonGrid.fully_connected(latency_penalty=1.05,
+                                                device=dev),
+                policy=PlacementPolicy(OraclePolicy(pack_infra(
+                    tpu_fleet(), device=dev)), np.ones((4, 3))))
+            pool = WorkerPool(4, slots_per_worker=slots,
+                              launch_delay_steps=0)
+            for r in range(4):
+                for tier in (1, 2):
+                    pool.launch(r, tier, n=2)
+            out[dev.type] = serve_stream(fr, batch, region, t_hours,
+                                         pool=pool)
+        _assert_commitments_equal(out["cuda"], out["cpu"],
+                                  SERVE_FIELDS + ("step",))
+        if slots < 100:
+            assert out["cuda"].shed_count > 0
+
+    def test_refit_flips_card_vs_cpu(self, cuda):
+        """The static learned policy (fitted on the host) and its online
+        refit on the card decide as on the CPU: the flip count is 0."""
+        from repro_torch.configs import get_config
+        from repro_torch.core import (ALL_PAPER_WORKLOADS, ScenarioAxes,
+                                      build_scenarios, explore, paper_fleet)
+        from repro_torch.core.carbon_intensity import CarbonGrid
+        from repro_torch.core.infrastructure import pack_infra, tpu_fleet
+        from repro_torch.core.schedulers import (ClassificationScheduler,
+                                                 build_dataset)
+        from repro_torch.serve import (FleetRouter, LearnedPolicy,
+                                       OnlineRefitter, TemporalPolicy,
+                                       serve_stream)
+        from repro_torch.serve.streams import deferrable_stream_multiday
+
+        cpu = torch.device("cpu")
+        table = build_scenarios(paper_fleet(),
+                                ScenarioAxes(hours=tuple(range(0, 24, 4))),
+                                device=cpu)
+        train = build_dataset(ALL_PAPER_WORKLOADS,
+                              explore(ALL_PAPER_WORKLOADS, table),
+                              table).split()[0]
+        static = LearnedPolicy.fit(ClassificationScheduler(carbon_head=False),
+                                   train, device=cpu)
+        batch, region, t_hours = deferrable_stream_multiday(SERVE_N, 4,
+                                                            n_days=2)
+        caps = np.full((4, 3), np.inf)
+        caps[:, 1] = caps[:, 2] = max(1.0, 0.6 * SERVE_N / (4 * 48))
+        out = {}
+        for dev in (cuda, cpu):
+            inner = dataclasses.replace(
+                static.to(dev), infra=pack_infra(tpu_fleet(), device=dev))
+            fr = FleetRouter(get_config("h2o-danube-1.8b"), device=dev,
+                             grid=CarbonGrid.fully_connected(
+                                 latency_penalty=1.05, n_days=2, device=dev),
+                             policy=TemporalPolicy(inner, caps,
+                                                   max_defer_h=16))
+            refitter = OnlineRefitter(min_observations=SERVE_N // 12,
+                                      refit_every=SERVE_N // 6)
+            out[dev.type] = serve_stream(fr, batch, region, t_hours,
+                                         step_h=2, refitter=refitter)
+        g, c = out["cuda"], out["cpu"]
+        assert g.refits == c.refits >= 2
+        flips = int((g.target != c.target).sum()
+                    + (g.exec_region != c.exec_region).sum()
+                    + (g.exec_hour != c.exec_hour).sum())
+        assert flips == 0, f"{flips} decisions flipped card vs CPU"
+        _assert_commitments_equal(g, c, SERVE_FIELDS + ("step",))

@@ -29,6 +29,7 @@ from repro_torch.launch.serve import env_at_hour as t_env_at_hour  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.serve import placement as t_pl  # noqa: E402
 from repro_torch.serve import policy as t_pol  # noqa: E402
+from repro_torch.serve import queue as t_q  # noqa: E402
 from repro_torch.serve import router as t_router  # noqa: E402
 
 from torch_fleet_parity import (  # noqa: E402
@@ -289,14 +290,25 @@ class TestAdmissionAndRefusals:
             t_router.FleetRouter(cfg, device=CPU, mesh=object())
         with pytest.raises(NotImplementedError, match="item 9"):
             fr.route_stream(torch_batch(b), reg, th, mesh=object())
-        with pytest.raises(NotImplementedError, match="item 6"):
+        # the serving loop is ported: the rolling planner refuses only a policy
+        # that cannot defer, and admit_windows(queue=) delegates
+        with pytest.raises(ValueError, match="TemporalPolicy"):
             fr.route_stream_rolling(torch_batch(b), reg, th)
-        res = fr.route_stream(torch_batch(b), reg, th)
-        with pytest.raises(NotImplementedError, match="item 6"):
-            fr.admit_windows(res, th, _TierStub(1), queue=object())
-        with pytest.raises(NotImplementedError, match="item 7"):
+        k = 500
+        head = dataclasses.replace(torch_batch(b), **{
+            f: getattr(b, f)[:k] for f in ("prompt_tokens", "max_new_tokens",
+                                           "latency_budget_s",
+                                           "bytes_per_token", "available")})
+        served = t_q.serve_stream(fr, head, reg[:k], th[:k])
+        got = fr.admit_windows(None, None, _TierStub(1), queue=served)
+        want = t_q.admit_batches(served, _TierStub(1))
+        assert len(got) == len(want) > 0
+        for a, c in zip(got, want):
+            np.testing.assert_array_equal(a, c)
+        # policies of another package are refused
+        with pytest.raises(NotImplementedError, match="RoutingPolicy"):
             t_router.GreenScaleRouter(cfg, policy=object(), device=CPU)
-        with pytest.raises(NotImplementedError, match="item 7"):
+        with pytest.raises(NotImplementedError, match="RoutingPolicy"):
             t_router.FleetRouter(cfg, device=CPU,
                                  policy=r_pol.OraclePolicy(env["r_inf"]))
         pol = t_pl.PlacementPolicy(t_pol.OraclePolicy(inf), dc_caps(N, 4, 1))
@@ -381,3 +393,51 @@ class TestNanScores:
             assert host(got).tolist() == want, pol.name
             if st != ():
                 assert not host(st.shed).any()
+
+    def test_nan_divergence_from_the_bare_reference_policy(self, env):
+        """The port's guard differs from the reference on purpose: the
+        reference's bare ``RoutingPolicy.decide`` takes ``argmin`` and
+        picks the NaN candidate, [0, 1, 0, 0], while its
+        ``CapacityLimiter`` and ``PlacementPolicy`` never pick it,
+        [2, 0, 0, 2]; the port gives [2, 0, 0, 2] on all three."""
+        import jax.numpy as jnp
+
+        nan, inf = self.NAN, float("inf")
+        rows = [[nan, 2.0, 1.0], [3.0, nan, 4.0], [nan] * 3,
+                [nan, inf, 5.0]]
+        n = len(rows)
+
+        class RFixed(r_pol.RoutingPolicy):
+            def scores(self, w, env_, avail, *, hour=None):
+                return jnp.asarray(rows, jnp.float32)
+
+        batch = dataclasses.replace(
+            env["stream"][0],
+            **{f: getattr(env["stream"][0], f)[:n]
+               for f in ("prompt_tokens", "max_new_tokens",
+                         "latency_budget_s", "bytes_per_token",
+                         "available")})
+        r_w = batch.workload(env["r_cfg"])
+        r_e = r_env_at_hour(0)
+        r_avail = jnp.ones((n, 3), bool)
+        zeros = jnp.zeros(n, jnp.int32)
+        caps = np.full((1, 3), np.inf)
+        r_grid = r_ci.CarbonGrid.from_regions(r_ci.DEFAULT_REGIONS[:1])
+        inner = RFixed()
+        got = {}
+        for name, pol in (("bare", inner),
+                          ("capacity", r_pol.CapacityLimiter(inner, caps)),
+                          ("placement", r_pl.PlacementPolicy(
+                              inner, caps, grid=r_grid))):
+            t, _ = pol.decide(r_w, r_e, r_avail, pol.initial_state(1, n),
+                              region=zeros, hour=zeros)
+            got[name] = np.asarray(t).tolist()
+        assert got == {"bare": [0, 1, 0, 0], "capacity": [2, 0, 0, 2],
+                       "placement": [2, 0, 0, 2]}
+        t_w = torch_batch(batch).workload(env["t_cfg"], device=CPU)
+        t_inner = _FixedScores(torch.tensor(rows))
+        t_got, _ = t_inner.decide(t_w, t_env_at_hour(0, device=CPU),
+                                  torch.ones((n, 3), dtype=torch.bool), (),
+                                  region=torch.zeros(n, dtype=torch.long),
+                                  hour=torch.zeros(n, dtype=torch.long))
+        assert host(t_got).tolist() == got["capacity"] != got["bare"]

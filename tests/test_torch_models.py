@@ -29,6 +29,7 @@ from repro_torch.core import Environment, Grid, Workload, grid_trace  # noqa: E4
 from repro_torch.core.infrastructure import pack_infra, tpu_fleet  # noqa: E402
 from repro_torch.launch import serve as t_serve  # noqa: E402
 from repro_torch.models import Transformer, init_kv_cache, load_jax_params  # noqa: E402
+from repro_torch.models.layers import GeluMLP  # noqa: E402
 from repro_torch.serve import GreenScaleRouter, Request, ServeEngine  # noqa: E402
 
 ARCH = "h2o-danube-1.8b"
@@ -394,3 +395,80 @@ def test_dense_config_with_qkv_bias_runs():
     assert logits.shape == (2, 8, cfg.vocab_size)
     assert torch.isfinite(logits).all()
     assert sum(p.numel() for p in model.parameters()) == cfg.param_count()
+
+
+#: DENSE-family configs beyond danube: granite-34b's fc-GELU-fc MLP (tanh
+#: GELU, biases), deepseek-7b, qwen2-72b (qkv bias) and the moonshot MoE
+OTHER_ARCHS = ["granite-34b", "deepseek-7b", "qwen2-72b",
+               "moonshot-v1-16b-a3b"]
+
+
+@pytest.fixture(scope="module", params=OTHER_ARCHS)
+def other_pair(request):
+    """(cfg, reference params, port model) for the other configs' smoke
+    versions, in float32."""
+    arch = request.param
+    cfg = r_get_config(arch, smoke=True)
+    params = jax.jit(r_tf.init_params, static_argnums=1,
+                     static_argnames="dtype")(jax.random.PRNGKey(0), cfg,
+                                              dtype=jnp.float32)
+    model = Transformer(get_config(arch, smoke=True), device=CPU)
+    load_jax_params(model, jax.tree.map(np.asarray, params))
+    return cfg, params, model
+
+
+class TestOtherConfigs:
+    """Parameter count, forward and prefill logits within 5e-4 and greedy
+    tokens identical to the reference, for each config of
+    ``OTHER_ARCHS``."""
+
+    def test_param_count_and_mlp(self, other_pair):
+        cfg, params, model = other_pair
+        assert sum(p.numel() for p in model.parameters()) == \
+            cfg.param_count() == sum(int(np.prod(l.shape))
+                                     for l in jax.tree.leaves(params))
+        ffs = [l.ff for l in model.layers if hasattr(l, "ff")]
+        if cfg.mlp_gelu:
+            assert ffs and all(isinstance(f, GeluMLP) for f in ffs)
+            assert {n for n, _ in ffs[0].named_parameters()} == \
+                {"w1", "b1", "w2", "b2"}
+        else:
+            assert not any(isinstance(f, GeluMLP) for f in ffs)
+
+    def test_forward_and_prefill_logits(self, other_pair):
+        cfg, params, model = other_pair
+        toks = _tokens((2, 20), seed=31, vocab=cfg.vocab_size)
+        want, _ = _r_forward(params, cfg, jnp.asarray(toks), use_pallas=True)
+        np.testing.assert_allclose(_np(model(torch.from_numpy(toks))),
+                                   np.asarray(want), **TOL)
+        want, _ = _r_prefill(params, cfg, jnp.asarray(toks), max_seq=32,
+                             cache_dtype=jnp.float32, use_pallas=True)
+        got, _ = model.prefill(torch.from_numpy(toks), max_seq=32,
+                               cache_dtype=torch.float32)
+        np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+
+    def test_greedy_generate_tokens_identical(self, other_pair):
+        cfg, params, model = other_pair
+        toks = _tokens((3, 16), seed=32, vocab=cfg.vocab_size)
+        want = RServeEngine(cfg, params, max_seq=40, use_pallas=True).generate(
+            jnp.asarray(toks), max_new_tokens=10)
+        got = ServeEngine(get_config(cfg.name.removesuffix("-smoke"),
+                                     smoke=True), model, max_seq=40,
+                          device=CPU).generate(torch.from_numpy(toks),
+                                               max_new_tokens=10)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_gelu_mlp_is_the_tanh_approximation():
+    """``GeluMLP`` computes ``jax.nn.gelu``'s default (tanh) form."""
+    rng = np.random.default_rng(0)
+    mlp = GeluMLP(8, 16, device=CPU,
+                  generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        mlp.b1.copy_(torch.from_numpy(rng.normal(size=16).astype(np.float32)))
+        mlp.b2.copy_(torch.from_numpy(rng.normal(size=8).astype(np.float32)))
+    x = rng.normal(size=(5, 8)).astype(np.float32)
+    p = {k: np.asarray(v.detach()) for k, v in mlp.named_parameters()}
+    want = np.asarray(jax.nn.gelu(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"])
+    np.testing.assert_allclose(_np(mlp(torch.from_numpy(x))), want,
+                               atol=1e-5, rtol=1e-5)

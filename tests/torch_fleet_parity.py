@@ -1,7 +1,9 @@
-"""Shared helpers of the decide-half parity tests (``test_torch_grid.py``,
-``test_torch_fleet.py``, ``test_torch_temporal.py``): the same numpy
-stream through a reference ``repro`` router and a port ``repro_torch``
-router on the CPU. Integer outputs must match exactly and carbon within
+"""Shared helpers of the decide-half and serving-loop parity tests
+(``test_torch_grid.py``, ``test_torch_fleet.py``, ``test_torch_temporal.py``,
+``test_torch_learned.py``, ``test_torch_forecast.py``,
+``test_torch_queue.py``, ``test_torch_online.py``): the same numpy stream
+through a reference ``repro`` router and a port ``repro_torch`` router on
+the CPU. Integer outputs must match exactly and carbon within
 rtol 1e-5 (ROADMAP.md's parity bar)."""
 
 import dataclasses
@@ -74,3 +76,59 @@ def route_both(r_fr, t_fr, stream):
     t_res, t_state = t_fr.route_stream_with_state(torch_batch(batch), region,
                                                   t_hours)
     return r_res, r_state, t_res, t_state
+
+
+SERVE_FIELDS = ("target", "exec_region", "exec_hour", "defer_hours", "shed",
+                "step")
+STEP_FIELDS = ("now", "drafted", "n_batches", "routed", "shed", "held",
+               "queued_after", "refit")
+
+
+def serve_routers(env, kind, caps, grids=None, inner=None, **kw):
+    """A reference and a port ``FleetRouter`` with the same placement
+    (``kind="placement"``) or temporal policy over ``inner`` (default: the
+    oracle of each package); ``env`` holds both packages' configs, infras
+    and grids (``r_cfg``, ``t_cfg``, ``r_inf``, ``t_inf``, ``grids``)."""
+    from repro.serve import placement as r_pl
+    from repro.serve import policy as r_pol
+    from repro.serve import router as r_router
+    from repro.serve import temporal as r_tmp
+
+    from repro_torch.serve import placement as t_pl
+    from repro_torch.serve import policy as t_pol
+    from repro_torch.serve import temporal as t_tmp
+
+    grids = env["grids"] if grids is None else grids
+    inner = inner or (r_pol.OraclePolicy(env["r_inf"]),
+                      t_pol.OraclePolicy(env["t_inf"]))
+    mods = ((r_pl, r_tmp), (t_pl, t_tmp))
+    out = []
+    for (pl, tmp), cfg, grid, inn, dev in zip(
+            mods, (env["r_cfg"], env["t_cfg"]), grids, inner,
+            ({}, {"device": CPU})):
+        pol = (pl.PlacementPolicy(inn, caps) if kind == "placement"
+               else tmp.TemporalPolicy(inn, caps, **kw))
+        router = r_router if pl is r_pl else t_router
+        out.append(router.FleetRouter(cfg, grid=grid, policy=pol, **dev))
+    return out
+
+
+def assert_served_equal(r_res, t_res):
+    """Two ``QueueServeResult``s agree: every commitment and step record
+    exactly, carbon within ``RTOL``."""
+    for f in SERVE_FIELDS:
+        got, want = getattr(t_res, f), getattr(r_res, f)
+        assert got.dtype == want.dtype, f
+        np.testing.assert_array_equal(got, want, err_msg=f)
+    np.testing.assert_allclose(t_res.carbon_g, r_res.carbon_g, rtol=RTOL,
+                               atol=0)
+    for f in ("total_carbon_g", "routed_carbon_g"):
+        np.testing.assert_allclose(getattr(t_res, f), getattr(r_res, f),
+                                   rtol=RTOL, err_msg=f)
+    assert (t_res.shed_count, t_res.deferred_count, t_res.refits) == (
+        r_res.shed_count, r_res.deferred_count, r_res.refits)
+    assert len(t_res.steps) == len(r_res.steps)
+    for ts, rs in zip(t_res.steps, r_res.steps):
+        for f in STEP_FIELDS:
+            assert getattr(ts, f) == getattr(rs, f), f
+        np.testing.assert_array_equal(ts.slots, rs.slots)
