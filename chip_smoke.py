@@ -9,7 +9,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 over one warm prefill and the decode steps of each served path (the top
 kernels, and every SSD sub-kernel by name), and of one warm ``xregion``
 and one ``temporal_joint`` route of the decide half, and of one warm rolling
-re-plan and one warm queue run of the serving loop (top ops, busy share).
+re-plan and one warm queue run of the serving loop, of one warm
+``steady_diurnal/temporal-defer`` scenario cell and of one warm 1M
+``serve_stream(plan=...)`` (top ops, busy share).
 ``--seed`` (default 0) seeds the fleet handoff's weights and prompts.
 
 Phases (any failure ends the script with a non-zero exit):
@@ -81,6 +83,28 @@ Phases (any failure ends the script with a non-zero exit):
    edge-DC tier picks the first serve step of the queue run that admitted
    4 requests, and they are served through the full-width danube f32 engine
    (counters exact: 24 flash, 49 x 16 RMSNorm).
+7. ``[scenarios]``: the scenario matrix (``repro_torch.serve.scenarios``)
+   on the card at 1M requests a scenario (the flash crowd draws ~2.36M):
+   every (scenario, policy) cell of the seven scenarios x three policies,
+   one line each (total, routed and latency-optimal gCO2, shed / spill /
+   defer rates, mean defer, warm wall after one warm-up route); card ==
+   CPU on every cell built at 20,000 requests (each side routes the same
+   whole stream: decisions identical, carbon within rtol 1e-5); the three
+   gates of ``repro_torch.launch.scenario_matrix`` (curtailment chase and
+   spike-aware provisioning at 1M, watt caps at 200,000 x 3 seeds x 2
+   policies).
+8. ``[provision]``: the README's mesoscale provisioning table (20,000
+   requests, ``from_sites(128, 8)``, paper fleet) exactly and card == CPU;
+   the four plans of a 1M ``multi_region_stream`` on the same grid;
+   ``serve_stream(plan=)`` with the greedy and the static plan at 1M under
+   unit-capped placement (shed, routed and standing gCO2, warm wall; gate:
+   provisioned standing + routed < static's); card == CPU on a 50,000-
+   request stream with its own plan.
+9. ``[tour]``: ``repro_torch.launch.tour`` (the ten acts of the serving
+   tour) at its default 1M requests with ``--learned`` and the full
+   ``h2o-danube-1.8b`` engine in f32, the counters set to 0 just before
+   and read just after: 24 flash and 49 x 8 RMSNorm (one prefill, eight
+   forward passes), no SSD scan, no grouped matmul.
 
 The second-last line is one JSON object ``{"kernels": [...]}`` with each
 kernel's launches on the served paths, error, times and bound; the line
@@ -676,6 +700,288 @@ def serve_phase(torch, dev, results, profile: bool, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+# The scenario matrix (the reference's benchmarks/scenario_matrix.py at
+# 1M requests a scenario; the flash crowd draws ~2.36M), its card == CPU
+# check on whole 20k streams, and the watt-caps gate's stream size.
+SCEN_N = 1_000_000
+SCEN_CHECK_N = 20_000
+WATT_GATE_N = 200_000
+SCEN_RTOL = 1e-5
+# The README's mesoscale provisioning table (20k requests, 128-site sparse
+# grid, paper fleet, 64 slots a server): (server-hours, total gCO2 rounded)
+MESO_PIN = {"static-overprovision": (6144, 1_035_304),
+            "oracle": (5788, 973_133), "provisioned": (5788, 973_133),
+            "slo_0.02": (5257, 792_473)}
+PROV_N = 1_000_000
+PROV_CHECK_N = 50_000
+
+
+def scenarios_phase(torch, dev, profile: bool) -> None:
+    """Phase 7: the 21 (scenario, policy) cells of the scenario matrix on
+    the card at SCEN_N requests a scenario (warm wall after one warm-up
+    route), card == CPU on every cell at SCEN_CHECK_N, then the three
+    gates."""
+    import numpy as np
+
+    from repro_torch.launch import scenario_matrix as sm
+    from repro_torch.serve import scenarios as sc
+
+    t0 = time.perf_counter()
+    rows = sm.matrix_rows(SCEN_N, device=dev)
+    print(f"[scenarios] {len(rows)} cells routed in "
+          f"{time.perf_counter() - t0:.1f} s (streams built on the host, "
+          f"one warm-up route a cell)")
+    cells = [c for c, _ in rows]
+    for c, wall in rows:
+        check(all(np.isfinite(v) for v in (c.total_g, c.routed_g,
+                                           c.latency_opt_g))
+              and c.total_g > 0, f"{c.scenario}/{c.policy}: non-finite "
+              f"carbon")
+        print(f"[scenarios] {c.scenario}/{c.policy}: n {c.n}, total "
+              f"{c.total_g:.6g} g, routed {c.routed_g:.6g} g, "
+              f"latency-optimal {c.latency_opt_g:.6g} g, shed "
+              f"{c.shed_rate:.4f}, spill {c.spill_rate:.4f}, defer "
+              f"{c.defer_rate:.4f}, mean defer {c.mean_defer_h:.3f} h; "
+              f"warm {wall:.4f} s ({c.n / wall:.0f} req/s)")
+    if profile:
+        run = sc.default_scenarios()["steady_diurnal"].build(SCEN_N)
+        fr = sc.scenario_router(run, sc.default_policies()["temporal-defer"],
+                                device=dev)
+        route = lambda: fr.route_stream(run.batch, run.region, run.t_hours)
+        route()  # warm-up
+        device_profile(torch, route,
+                       "scenarios steady_diurnal/temporal-defer")
+        del run, fr
+    torch.cuda.empty_cache()
+
+    # card against CPU: each package routes the same whole 20k stream
+    host = lambda x: x.cpu().numpy()
+    worst, flips = 0.0, 0
+    for sname, scenario in sc.default_scenarios().items():
+        for pname, factory in sc.default_policies().items():
+            got = {}
+            for d in (dev, "cpu"):
+                res, state, run = sc.route_scenario(
+                    scenario, factory, n=SCEN_CHECK_N, device=d)
+                check(res.target.device.type == torch.device(d).type,
+                      f"{sname}/{pname}: targets not on {d}")
+                ex_h = getattr(state, "exec_hour", None)
+                got[str(d)] = (
+                    {"target": host(res.target),
+                     "exec_region": host(res.exec_region),
+                     "exec_hour": (np.floor(run.t_hours).astype(np.int64)
+                                   if ex_h is None else host(ex_h)),
+                     "shed": host(state.shed), "counts": host(res.counts)},
+                    host(res.carbon_g), sc._cell(sname, pname,
+                                                 len(run.batch), res))
+            card, cpu = got[str(dev)], got["cpu"]
+            for k, v in cpu[0].items():
+                bad = int((card[0][k] != v).sum())
+                flips += bad
+                check(bad == 0, f"{sname}/{pname}: {k} differs card vs CPU "
+                      f"at {SCEN_CHECK_N} ({bad} entries)")
+            check(np.allclose(card[1], cpu[1], rtol=SCEN_RTOL, atol=0),
+                  f"{sname}/{pname}: carbon differs card vs CPU")
+            a, b = card[2], cpu[2]
+            check((a.n, a.shed_rate, a.spill_rate, a.defer_rate)
+                  == (b.n, b.shed_rate, b.spill_rate, b.defer_rate),
+                  f"{sname}/{pname}: rates differ card vs CPU")
+            for f in ("total_g", "routed_g", "latency_opt_g",
+                      "mean_defer_h"):
+                x, y = getattr(a, f), getattr(b, f)
+                check(abs(x - y) <= SCEN_RTOL * abs(y),
+                      f"{sname}/{pname}: {f} differs card vs CPU")
+            worst = max(worst, float(np.max(
+                np.abs(card[1] - cpu[1]) / np.maximum(np.abs(cpu[1]),
+                                                      1e-30))))
+    print(f"[scenarios] card == CPU on all {len(cells)} cells at "
+          f"{SCEN_CHECK_N} requests a scenario: target, exec region/hour, "
+          f"shed, counts identical ({flips} flips); carbon max rel err "
+          f"{worst:.2e} (rtol {SCEN_RTOL:g})")
+
+    # the three gates, which raise when they fail
+    for name, fn in (
+            ("curtailment_chase",
+             lambda: sm.curtailment_gate(cells, SCEN_N, device=dev)),
+            ("spike_aware", lambda: sm.spike_aware_gate(SCEN_N, device=dev)),
+            ("watt_caps",
+             lambda: sm.watt_caps_gate(WATT_GATE_N, device=dev))):
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        except AssertionError as e:
+            fail(f"scenario gate {name}: {e}")
+        derived = ", ".join(f"{k} {v:.6g}" if isinstance(v, float)
+                            else f"{k} {v}" for k, v in out.items())
+        print(f"[scenarios] gate {name}: PASS ({derived}) in "
+              f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+
+
+def provision_phase(torch, dev, profile: bool) -> None:
+    """Phase 8: provisioning on the 128-site sparse grid: the README's 20k
+    pin exactly (card == CPU), the four plans of a PROV_N stream and the
+    plan-driven serve loop at PROV_N (warm wall after one warm-up run),
+    then card == CPU on a PROV_CHECK_N stream with its own plan."""
+    import numpy as np
+
+    from repro_torch.launch import scenario_matrix as sm
+    from repro_torch.serve import serve_stream
+
+    # --- the README's pin --------------------------------------------------
+    try:
+        pin = {d: sm.mesoscale_pin(device=d) for d in (dev, "cpu")}
+    except AssertionError as e:
+        fail(f"mesoscale provisioning gate: {e}")
+    card, cpu = pin[dev], pin["cpu"]
+    for p, q in zip(card["plans"], cpu["plans"]):
+        hours, total = MESO_PIN[p.name]
+        print(f"[provision] pin {sm.MESO_N} {p.name}: server-hours "
+              f"{p.server_hours}, total {p.total_carbon_g:.6f} g "
+              f"(operational {p.operational_g:.6g}, embodied "
+              f"{p.embodied_g:.6g}), forecast shed {p.shed_rate:.4f}")
+        check((p.server_hours, round(p.total_carbon_g)) == (hours, total),
+              f"mesoscale pin {p.name}: ({p.server_hours}, "
+              f"{round(p.total_carbon_g)}) is not the README's "
+              f"({hours}, {total})")
+        check(np.array_equal(p.servers, q.servers)
+              and p.total_carbon_g == q.total_carbon_g,
+              f"mesoscale pin {p.name}: plan differs card vs CPU")
+    a, b = card["serve"], cpu["serve"]
+    for f in ("target", "exec_region", "exec_hour", "shed", "step"):
+        check(np.array_equal(getattr(a, f), getattr(b, f)),
+              f"mesoscale pin serve: {f} differs card vs CPU")
+    print(f"[provision] pin: README table exact; serve_stream(plan="
+          f"provisioned) on {sm.MESO_N} requests: shed {a.shed_count}, routed "
+          f"{a.routed_carbon_g:.6g} g; card == CPU")
+
+    # --- PROV_N: four plans and the plan-driven serve loop ------------------
+    t0 = time.perf_counter()
+    m = sm.mesoscale_plans(PROV_N, device=dev)
+    prov, slo, stat, orac = m.provisioned, m.slo, m.static, m.oracle
+    fr, stream = m.router, m.stream
+    t_plan = time.perf_counter() - t0
+    for p in (prov, slo, stat, orac):
+        print(f"[provision] {PROV_N} plan {p.name}: server-hours "
+              f"{p.server_hours}, total {p.total_carbon_g:.6g} g "
+              f"(operational {p.operational_g:.6g}, embodied "
+              f"{p.embodied_g:.6g}), forecast shed {p.shed_rate:.4f}")
+    check(prov.total_carbon_g < stat.total_carbon_g
+          and prov.shed_rate <= stat.shed_rate + 1e-12,
+          "provisioned plan does not beat static over-provisioning")
+    check(slo.total_carbon_g <= orac.total_carbon_g,
+          "the 2% SLO plan is dirtier than the oracle")
+    print(f"[provision] plans built in {t_plan:.2f} s (stream, demand, four "
+          f"plans, host numpy)")
+    served = {}
+    for plan in (prov, stat):
+        run = lambda: serve_stream(fr, *stream, plan=plan)
+        run()  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        served[plan.name] = res
+        check(np.isfinite(res.routed_carbon_g) and res.routed_carbon_g > 0,
+              f"serve with {plan.name}: non-finite or zero routed carbon")
+        check(sum(s.routed + s.shed for s in res.steps) == PROV_N
+              and res.steps[-1].queued_after == 0,
+              f"serve with {plan.name}: the conservation ledger does not "
+              f"balance")
+        print(f"[provision] serve_stream(plan={plan.name}): {PROV_N} "
+              f"requests, shed {res.shed_count}, routed "
+              f"{res.routed_carbon_g:.6g} g, standing "
+              f"{plan.total_carbon_g:.6g} g, steps {len(res.steps)}, "
+              f"batches {sum(s.n_batches for s in res.steps)}; warm "
+              f"{wall:.4f} s ({PROV_N / wall:.0f} req/s)")
+        if profile and plan is prov:
+            device_profile(torch, run, "provision serve_stream(plan=)")
+    qp, qs = served[prov.name], served[stat.name]
+    check(prov.total_carbon_g + qp.routed_carbon_g
+          < stat.total_carbon_g + qs.routed_carbon_g,
+          "provisioned standing + routed carbon is not below static's")
+    print(f"[provision] gate: provisioned standing + routed "
+          f"{prov.total_carbon_g + qp.routed_carbon_g:.6g} g < static "
+          f"{stat.total_carbon_g + qs.routed_carbon_g:.6g} g")
+    del m, fr, served, qp, qs
+    torch.cuda.empty_cache()
+
+    # --- card == CPU on a PROV_CHECK_N stream with its own plan -------------
+    got = {}
+    for d in (dev, "cpu"):
+        m = sm.mesoscale_plans(PROV_CHECK_N, device=d)
+        got[str(d)] = (m.provisioned, serve_stream(m.router, *m.stream,
+                                                   plan=m.provisioned))
+    (pc, a), (pp, b) = got[str(dev)], got["cpu"]
+    check(np.array_equal(pc.servers, pp.servers)
+          and pc.total_carbon_g == pp.total_carbon_g,
+          "provisioned plan differs card vs CPU")
+    for f in ("target", "exec_region", "exec_hour", "shed", "step"):
+        bad = int((getattr(a, f) != getattr(b, f)).sum())
+        check(bad == 0, f"plan-driven serve: {f} differs card vs CPU "
+              f"({bad} rows)")
+    check(np.allclose(a.carbon_g, b.carbon_g, rtol=SCEN_RTOL, atol=0),
+          "plan-driven serve: carbon differs card vs CPU")
+    err = np.max(np.abs(a.carbon_g - b.carbon_g)
+                 / np.maximum(np.abs(b.carbon_g), 1e-30))
+    print(f"[provision] card == CPU on a whole {PROV_CHECK_N}-request "
+          f"stream with its own plan ({pc.server_hours} server-hours): "
+          f"plan, target, exec region/hour, shed, step identical; carbon "
+          f"max rel err {err:.2e} (rtol {SCEN_RTOL:g})")
+    torch.cuda.empty_cache()
+
+
+def tour_phase(torch, results) -> None:
+    """Phase 9: the ten-act tour at its default 1M requests with the full
+    danube engine in f32, the launch counters set to 0 just before it and
+    read just after: one prefill (24 flash) and 8 forward passes (49
+    RMSNorm each) in act 3, no SSD scan, no grouped matmul."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import tour
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    run = tour.main(["--device", "cuda", "--no-smoke", "--learned"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    cfg = get_config(DANUBE)
+    tokens = run.acts[3]["tokens"]
+    passes = tokens.shape[1]  # one prefill + (new tokens - 1) decode steps
+    want = dict({k: 0 for k in launches}, flash_attention=cfg.n_layers,
+                fused_rmsnorm=(2 * cfg.n_layers + 1) * passes)
+    check(launches == want, f"tour: launch counts {launches}, expected "
+          f"{want}")
+    check(run.acts[3]["engine"] == DANUBE, "tour: the engine is not the "
+          "full config")
+    check(tokens.shape == (4, 8) and bool(((tokens >= 0)
+                                            & (tokens < cfg.vocab_size))
+                                           .all()), "tour: tokens")
+    check(sorted(run.acts) == list(range(1, 11)), "tour: acts missing")
+    a2 = run.acts[2]
+    check(np.isfinite(a2["total_carbon_g"]) and a2["total_carbon_g"] > 0
+          and int(a2["counts"].sum()) == run.requests,
+          "tour act 2: routed counts or carbon")
+    a9 = run.acts[9]
+    check(a9["refit_g"] <= a9["static_g"] * 1.001,
+          "tour act 9: the online refit routed dirtier than the static "
+          "learned policy")
+    for name, r in results.items():
+        r["launches_by_path"][f"tour -> {DANUBE}"] = launches[name]
+    print(f"[tour] ten acts at {run.requests} requests in {wall:.1f} s: act 2 "
+          f"{a2['total_carbon_g']:.6g} g in {a2['wall_s']:.4f} s warm; act 3 "
+          f"engine {DANUBE} f32 generated {tokens.shape} tokens in "
+          f"{run.acts[3]['generate_s']:.3f} s; act 9 static "
+          f"{a9['static_g']:.6g} g -> refit {a9['refit_g']:.6g} g "
+          f"(oracle {a9['oracle_g']:.6g} g, {a9['refits']} refits); "
+          f"launches {launches}")
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     args = sys.argv[1:]
     profile = "--profile" in args
@@ -1140,6 +1446,21 @@ def main() -> None:
     # --- phase 6: the serving loop on the card, then the handoff ---------------
     serve_phase(torch, dev, results, profile, seed)
     print(f"[chip_smoke] serve phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # --- phase 7: the scenario matrix and its gates ---------------------------
+    scenarios_phase(torch, dev, profile)
+    print(f"[chip_smoke] scenarios phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # --- phase 8: provisioning and the plan-driven serve loop ----------------
+    provision_phase(torch, dev, profile)
+    print(f"[chip_smoke] provision phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # --- phase 9: the ten-act tour with the full danube engine ---------------
+    tour_phase(torch, results)
+    print(f"[chip_smoke] tour phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # --- result lines ---------------------------------------------------------

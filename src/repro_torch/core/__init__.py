@@ -27,6 +27,7 @@ from repro_torch.core.carbon_model import (
     feasible,
     forecast_risk_scale,
     inflate_ci_risk,
+    optimal_target,
     optimal_targets_all_metrics,
     pick_target,
     qos_feasible_from_factors,

@@ -140,7 +140,28 @@ class GridTrace:
 
     @property
     def ci_mean(self) -> torch.Tensor:
-        return self.ci_hourly.mean()
+        # XLA's mean: a left-to-right sum times float32(1 / n)
+        n = self.ci_hourly.numel()
+        return _seq_sum(self.ci_hourly.reshape(-1)) * (1.0 / n)
+
+
+def _seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Left-to-right sum of a short 1-D tensor: the order of the
+    reference's XLA reduction over one day of hours."""
+    total = x[0]
+    for v in x[1:]:
+        total = total + v
+    return total
+
+
+def _tree_sum(cols: list[torch.Tensor]) -> torch.Tensor:
+    """Balanced pairwise sum of equal-shape tensors (first half, then the
+    second): the order in which the reference's XLA dot reduces a short
+    row, so the hourly CI holds the reference's bits on either device."""
+    if len(cols) == 1:
+        return cols[0]
+    h = len(cols) // 2
+    return _tree_sum(cols[:h]) + _tree_sum(cols[h:])
 
 
 def grid_trace(grid: Grid | int, *,
@@ -149,7 +170,8 @@ def grid_trace(grid: Grid | int, *,
     mix = torch.as_tensor(_GRID_MIX_BUILDERS[Grid(int(grid))](),
                           dtype=torch.float32, device=dev)
     source_ci = torch.tensor(SOURCE_CI_LIST, dtype=torch.float32, device=dev)
-    return GridTrace(mix=mix, ci_hourly=mix @ source_ci)
+    return GridTrace(mix=mix,
+                     ci_hourly=_tree_sum(list((mix * source_ci).unbind(-1))))
 
 
 def all_grid_traces(*, device: str | torch.device = "cuda") -> GridTrace:
@@ -187,7 +209,7 @@ def mobile_carbon_intensity(behavior: ChargingBehavior | int,
     """Average CI of the energy stored in the phone battery (gCO2eq/kWh):
     the charge-weighted CI of the grid at charging time (paper §3.2 Fig 4)."""
     prof = charging_profile(behavior, trace.ci_hourly)
-    return (prof * trace.ci_hourly).sum()
+    return _seq_sum(prof * trace.ci_hourly)
 
 
 # --- Regions and the unified carbon-grid abstraction ---------------------------

@@ -1,8 +1,8 @@
 """GreenScale carbon emission model — paper Table 1 on torch tensors.
 
 Port of ``Environment``, ``CFBreakdown``, ``evaluate``, the QoS checks,
-``pick_target``, ``evaluate_energy``, ``RouteOutputs``, ``route_one``,
-``route_many``, ``route_many_envs``, the factorized evaluator
+``pick_target``, ``optimal_target``, ``evaluate_energy``, ``RouteOutputs``,
+``route_one``, ``route_many``, ``route_many_envs``, the factorized evaluator
 (``EnergyFactors``, ``energy_factors[_batch]``, ``total_cf_from_factors``,
 ``route_many_from_factors`` and its QoS checks), the forecast-risk helpers
 and ``optimal_targets_all_metrics`` from the reference
@@ -253,6 +253,20 @@ def pick_target(score: torch.Tensor, ok: torch.Tensor, fallback: torch.Tensor,
     best = torch.argmin(torch.where(ok, score, float("inf")), dim=-1)
     fall = torch.argmin(torch.where(avail, fallback, float("inf")), dim=-1)
     return torch.where(ok.any(dim=-1), best, fall)
+
+
+def optimal_target(b: CFBreakdown, w: Workload, metric: str = "carbon",
+                   avail: torch.Tensor | None = None) -> torch.Tensor:
+    """argmin over feasible targets of the chosen metric (paper Fig 5
+    stars). The energy metric needs the infra and environment: use
+    ``optimal_targets_all_metrics``."""
+    if metric == "carbon":
+        score = b.total_cf
+    elif metric == "latency":
+        score = b.latency
+    else:
+        raise ValueError(metric)
+    return pick_target(score, feasible(b, w), b.total_cf, avail)
 
 
 def evaluate_energy(w: Workload, infra: InfraParams,

@@ -1,12 +1,13 @@
 """Edge-cloud infrastructure specifications (paper §2, §4.2, Tables 7-8).
 
-Port of the fleet specs, ``pack_infra`` and the per-tier envelopes
-(``TierEnvelope``, ``tpu_envelope``, ``paper_envelope``) from the
+Port of the fleet specs, ``pack_infra``, the per-tier envelopes
+(``TierEnvelope``, ``tpu_envelope``, ``paper_envelope``) and the
+provisioning rates (``watt_caps``, ``server_carbon_rates``) from the
 reference ``core/infrastructure.py``: the same two fleets (``paper_fleet``
 for the figure reproductions, ``tpu_fleet`` for the LM workloads) packed
 into a dataclass of float32 tensors that the Table-1 model consumes. The
-envelopes are the simulated fleet's tier data (host numpy), not the
-hardware this package runs on.
+envelopes and rates are the simulated fleet's tier data (host numpy), not
+the hardware this package runs on.
 """
 
 from __future__ import annotations
@@ -238,6 +239,9 @@ class InfraParams:
     n_user_dc: torch.Tensor  # ()
     n_batch_dc: torch.Tensor  # ()
 
+    def replace(self, **kw) -> "InfraParams":
+        return dataclasses.replace(self, **kw)
+
 
 def pack_infra(fleet: Fleet, embodied_model: str = "act",
                device_kind: str = "phone", *,
@@ -345,3 +349,49 @@ def paper_envelope() -> TierEnvelope:
         name="paper",
         tdp_w=(3.797, 693.5, 7000.0),
         vram_bytes=(4.0 * gib, 16.0 * gib, 8 * 40.0 * gib))
+
+
+def watt_caps(envelope: TierEnvelope, power_budget_w, *,
+              slots_per_server: float = 64.0) -> np.ndarray:
+    """(R, 3) float32 admission-slot matrix from per-region power budgets.
+
+    ``power_budget_w`` is (R, 3) watts available to each (region, tier),
+    ``np.inf`` = unconstrained (``carbon_intensity.region_power_budgets``).
+    Each tier energizes ``floor(budget / tdp_w)`` whole servers at
+    ``slots_per_server`` requests per hour each. Build the routing policy
+    with unit caps and pass this matrix as ``cap_scale`` (or as the caps):
+    it is the per-(region, tier) hourly admission limit, as
+    ``WorkerPool.cap_matrix`` is. The mobile column is unbounded (the
+    repo-wide ``caps[:, 0] = inf`` convention)."""
+    b = np.asarray(power_budget_w, np.float64)
+    if b.ndim != 2 or b.shape[1] != 3:
+        raise ValueError(f"power_budget_w must be (R, 3), got {b.shape}")
+    if (b < 0).any():
+        raise ValueError("power budgets must be non-negative")
+    if slots_per_server <= 0:
+        raise ValueError("slots_per_server must be positive")
+    m = (envelope.servers_for_power(b)
+         * float(slots_per_server)).astype(np.float32)
+    m[:, 0] = np.inf
+    return m
+
+
+def server_carbon_rates(fleet: Fleet, embodied_model: str = "act", *,
+                        utilization: float = 1.0
+                        ) -> tuple[np.ndarray, np.ndarray]:
+    """Per-tier provisioning carbon rates (paper §4.3 accounting):
+    ``(emb_g_per_h, idle_w)``, two (3,) float64 arrays indexed [mobile,
+    edge_dc, hyper_dc]. ``emb_g_per_h`` is the tier's embodied CF spread
+    over ``lifetime x utilization`` (``embodied.amortized_g_per_hour``),
+    charged to every provisioned server-hour; ``idle_w`` the wall idle
+    power (tier PUE folded in) a plan charges at the site's hourly CI."""
+    from repro_torch.core.embodied import amortized_g_per_hour
+
+    if embodied_model not in ("act", "lca"):
+        raise ValueError(f"unknown embodied model: {embodied_model!r}")
+    tiers = (fleet.mobile, fleet.edge_dc, fleet.hyper_dc)
+    emb = np.array([amortized_g_per_hour(
+        t.ecf_act_g if embodied_model == "act" else t.ecf_lca_g,
+        t.lifetime_s / 3600.0, utilization) for t in tiers])
+    idle = np.array([t.p_idle * t.pue for t in tiers])
+    return emb, idle

@@ -149,6 +149,32 @@ def _with_bias(X: torch.Tensor) -> torch.Tensor:
                                     device=X.device)], dim=1)
 
 
+def _solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a^-1 b`` by LU with partial pivoting, unblocked (LAPACK's
+    ``getf2`` order): the factors are the same bits for any thread count,
+    and equal rows of ``a`` leave an exact zero pivot, so a singular ``a``
+    gives non-finite weights, as the reference's ``jnp.linalg.solve`` does
+    on its singular regression gram, instead of raising. (That gram, of the
+    full design space, is singular in float32: some feature columns
+    repeat, and its ridge term vanishes beside diagonal entries of the
+    order of the row count. A blocked LU reorders the updates of equal
+    rows, leaves a tiny pivot or none depending on how the gram's sums
+    were split among threads, and returns huge finite weights or none.)"""
+    lu = a.clone()
+    n = lu.shape[0]
+    piv = torch.empty(n, dtype=torch.int32)
+    for k in range(n):
+        p = k + int(torch.argmax(lu[k:, k].abs()))  # first of equal maxima
+        piv[k] = p + 1
+        if p != k:
+            lu[[k, p]] = lu[[p, k]]
+        if lu[k, k] != 0:
+            lu[k + 1:, k] = lu[k + 1:, k] / lu[k, k]
+            lu[k + 1:, k + 1:] = (lu[k + 1:, k + 1:]
+                                  - lu[k + 1:, k:k + 1] * lu[k:k + 1, k + 1:])
+    return torch.linalg.lu_solve(lu, piv.to(lu.device), b)
+
+
 def _rowdot(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """``X @ W`` for (N, F) @ (F, K) as an ordered sum over F of
     elementwise products: the same bits on every device (a matmul's
@@ -189,9 +215,9 @@ class RegressionScheduler:
         Xb = _with_bias(_host(train.features))
         d = Xb.shape[1]
         gram = Xb.T @ Xb + self.ridge * torch.eye(d)
-        W_cf = torch.linalg.solve(
+        W_cf = _solve(
             gram, Xb.T @ torch.log(_host(train.total_cf) + 1e-9))
-        W_lat = torch.linalg.solve(
+        W_lat = _solve(
             gram, Xb.T @ torch.log(_host(train.latency) + 1e-9))
         return {"W_cf": W_cf, "W_lat": W_lat}
 
@@ -235,10 +261,10 @@ class ClassificationScheduler:
         Y = 2.0 * torch.nn.functional.one_hot(labels, 3).float() - 1.0
         d = Xb.shape[1]
         gram = Xb.T @ Xb + self.ridge * len(Xb) * torch.eye(d)
-        W = torch.linalg.solve(gram, Xb.T @ Y)
+        W = _solve(gram, Xb.T @ Y)
         if not self.carbon_head:
             return {"W": W}
-        W_cf = torch.linalg.solve(
+        W_cf = _solve(
             gram, Xb.T @ torch.log(_host(train.total_cf) + 1e-9))
         return {"W": W, "W_cf": W_cf,
                 "head_w": torch.tensor(self.head_weight, dtype=torch.float32)}
@@ -292,14 +318,14 @@ class BOScheduler:
             Kcc = self._rbf(Xc, Xc, self.ls) + self.noise * torch.eye(
                 len(chosen))
             Kxc = self._rbf(X[cand], Xc, self.ls)
-            sol = torch.linalg.solve(Kcc, Kxc.T)
+            sol = _solve(Kcc, Kxc.T)
             var = (1.0 - (Kxc.T * sol).sum(0)).numpy().copy()
             var[np.isin(cand, chosen)] = -np.inf
             chosen.append(int(cand[int(np.argmax(var))]))
 
         Xc, yc = X[chosen], y[chosen]
         Kcc = self._rbf(Xc, Xc, self.ls) + self.noise * torch.eye(len(chosen))
-        alpha = torch.linalg.solve(Kcc, yc)
+        alpha = _solve(Kcc, yc)
         return {"support": Xc, "alpha": alpha,
                 "ls": torch.tensor(self.ls, dtype=torch.float32),
                 "idx": torch.tensor(chosen, dtype=torch.int32)}

@@ -1,7 +1,9 @@
 """Serving layer of the port: the routers, the routing policies (oracle,
 learned, capacity-capped), the placement and temporal admission engines,
 the rolling forecast re-planner, the continuous-batching request queue
-with online policy refit, synthetic streams and the LM engine."""
+with online policy refit, joint capacity provisioning
+(``repro_torch.serve.provision``), the scenario matrix
+(``repro_torch.serve.scenarios``), synthetic streams and the LM engine."""
 
 from repro_torch.core.carbon_intensity import (
     DEFAULT_REGIONS,
@@ -32,6 +34,17 @@ from repro_torch.serve.policy import (
     RoutingPolicy,
     policy_features,
 )
+from repro_torch.serve.provision import (
+    ProvisioningPlan,
+    demand_from_arrivals,
+    oracle_plan,
+    provision_greedy,
+    realized_shed_rate,
+    smoothed_demand_forecast,
+    spike_demand_forecast,
+    standing_cost_g,
+    static_overprovision_plan,
+)
 from repro_torch.serve.queue import (
     BatchFormer,
     FormedBatch,
@@ -50,6 +63,20 @@ from repro_torch.serve.router import (
     RequestBatch,
     RouteDecision,
     request_workload,
+)
+from repro_torch.serve.scenarios import (
+    ArrivalSpec,
+    FleetSpec,
+    GridEventSpec,
+    MatrixCell,
+    Scenario,
+    ScenarioRun,
+    caps_violation,
+    default_policies,
+    default_scenarios,
+    matrix_csv,
+    route_scenario,
+    run_matrix,
 )
 from repro_torch.serve.streams import bake_ci_events
 from repro_torch.serve.temporal import TemporalPolicy, TemporalState

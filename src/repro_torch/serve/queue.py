@@ -23,8 +23,9 @@ fixed-shape sub-batches whenever worker capacity frees up:
 
 The queue, drafts and pool are host numpy, as in the reference; each draft
 is routed on the router's device and its decisions read back once (one
-sync per draft). ``serve_stream(plan=...)`` (provisioning, ROADMAP item 8)
-and ``BatchFormer(mesh=...)`` (item 9) raise.
+sync per draft). ``serve_stream(plan=...)`` steers the pool toward a
+``repro_torch.serve.provision.ProvisioningPlan`` each step.
+``BatchFormer(mesh=...)`` (sharded routing, ROADMAP item 9) raises.
 """
 
 from __future__ import annotations
@@ -424,13 +425,15 @@ def serve_stream(fr, batch: RequestBatch, region: np.ndarray,
     (``repro_torch.serve.online.OnlineRefitter``) every committed draft is
     observed and the router is hot-swapped between steps when enough
     settled tuples accumulate; the final router is ``refitter.router``.
-    ``plan`` (provisioning) is ROADMAP item 8 and raises."""
-    if plan is not None:
-        raise NotImplementedError(
-            "serve_stream(plan=...) needs the provisioning port: ROADMAP "
-            "item 8 (repro.serve.provision)")
+    With a ``plan`` (``repro_torch.serve.provision.ProvisioningPlan``),
+    each step starts by launching/draining the pool toward the plan's
+    server counts for that hour (a pool is created if none was given), so
+    admission sees exactly the provisioned capacity."""
     if step_h < 1:
         raise ValueError(f"step_h must be >= 1, got {step_h}")
+    if plan is not None and pool is None:
+        pool = WorkerPool(plan.n_regions,
+                          slots_per_worker=plan.slots_per_server)
     queue = RequestQueue.from_stream(batch, region, t_hours)
     former = former or BatchFormer()
     horizon = fr._horizon_h
@@ -463,6 +466,12 @@ def serve_stream(fr, batch: RequestBatch, region: np.ndarray,
         last = now + step_h >= horizon
         dev = fr.device
         if pool is not None:
+            if plan is not None:
+                # retire last step's drains, then steer the pool toward the
+                # plan's counts for this hour; with the default one-step
+                # launch delay the tick below brings them online this step
+                pool.terminate_drained()
+                plan.apply_to_pool(pool, now)
             pool.tick()
             slots = pool.cap_matrix()
             cap_scale = torch.as_tensor(slots, device=dev)

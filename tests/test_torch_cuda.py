@@ -625,3 +625,85 @@ class TestCudaServe:
                     + (g.exec_hour != c.exec_hour).sum())
         assert flips == 0, f"{flips} decisions flipped card vs CPU"
         _assert_commitments_equal(g, c, SERVE_FIELDS + ("step",))
+
+
+@pytest.mark.cuda
+class TestCudaScenarios:
+    """The scenario matrix, the plan-driven serve loop and the tour on the
+    card decide as on the CPU (``chip_smoke.py``'s ``[scenarios]``,
+    ``[provision]`` and ``[tour]`` recipes at 20k requests)."""
+
+    def test_matrix_card_equals_cpu(self, cuda):
+        from repro_torch.serve import scenarios as sc
+
+        for sname, scenario in sc.default_scenarios().items():
+            for pname, factory in sc.default_policies().items():
+                out = {}
+                for dev in (cuda, torch.device("cpu")):
+                    res, state, run = sc.route_scenario(
+                        scenario, factory, n=SERVE_N, device=dev)
+                    out[dev.type] = (res, state,
+                                     sc._cell(sname, pname, len(run.batch),
+                                              res))
+                (g, gs, gc), (c, cs, cc) = out["cuda"], out["cpu"]
+                for f in ("target", "exec_region", "counts"):
+                    assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), \
+                        f"{sname}/{pname}: {f}"
+                for f in ("shed", "exec_hour"):
+                    if hasattr(cs, f):
+                        assert torch.equal(getattr(gs, f).cpu(),
+                                           getattr(cs, f)), \
+                            f"{sname}/{pname}: {f}"
+                np.testing.assert_allclose(g.carbon_g.cpu().numpy(),
+                                           c.carbon_g.numpy(), rtol=1e-5,
+                                           atol=0)
+                assert (gc.n, gc.shed_rate, gc.spill_rate, gc.defer_rate) \
+                    == (cc.n, cc.shed_rate, cc.spill_rate, cc.defer_rate)
+
+    def test_plan_serve_card_equals_cpu(self, cuda):
+        from repro_torch.configs import get_config
+        from repro_torch.core.carbon_intensity import CarbonGrid
+        from repro_torch.core.infrastructure import (pack_infra, paper_fleet,
+                                                     tpu_fleet)
+        from repro_torch.serve import (FleetRouter, OraclePolicy,
+                                       PlacementPolicy, serve_stream)
+        from repro_torch.serve.provision import (demand_from_arrivals,
+                                                 provision_greedy)
+        from repro_torch.serve.streams import multi_region_stream
+
+        batch, region, t_hours = multi_region_stream(SERVE_N, 128, seed=1)
+        demand = demand_from_arrivals(region, t_hours, 24, 128)
+        out = {}
+        for dev in (cuda, torch.device("cpu")):
+            grid = CarbonGrid.from_sites(128, 8, seed=0, device=dev)
+            plan = provision_greedy(demand, grid, paper_fleet(),
+                                    slots_per_server=16.0)
+            fr = FleetRouter(get_config("h2o-danube-1.8b"), grid=grid,
+                             device=dev, policy=PlacementPolicy(
+                                 OraclePolicy(pack_infra(tpu_fleet(),
+                                                         device=dev)),
+                                 np.ones((128, 3))))
+            out[dev.type] = (plan, serve_stream(fr, batch, region, t_hours,
+                                                plan=plan))
+        (gp, g), (cp, c) = out["cuda"], out["cpu"]
+        np.testing.assert_array_equal(gp.servers, cp.servers)
+        assert gp.total_carbon_g == cp.total_carbon_g
+        _assert_commitments_equal(g, c, SERVE_FIELDS + ("step",))
+
+    def test_tour_launch_counts(self, cuda):
+        """The tour's engine (the full danube config in f32) runs act 3's
+        one prefill through 24 flash launches and its 8 forward passes
+        through 49 RMSNorm launches each; nothing else launches a kernel."""
+        from repro_torch.configs import get_config
+        from repro_torch.launch import tour
+
+        t_ops.reset_launches()
+        run = tour.main(["--device", "cuda", "--no-smoke", "--requests",
+                         str(SERVE_N)])
+        torch.cuda.synchronize()
+        launches = dict(t_ops.LAUNCHES)
+        cfg = get_config("h2o-danube-1.8b")
+        assert run.acts[3]["engine"] == cfg.name
+        assert launches == dict({k: 0 for k in launches},
+                                flash_attention=cfg.n_layers,
+                                fused_rmsnorm=(2 * cfg.n_layers + 1) * 8)

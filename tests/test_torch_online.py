@@ -163,3 +163,120 @@ class TestOnlineRefit:
                              former=r_q.BatchFormer(min_pad=ONE_SHAPE)),
             t_q.serve_stream(t_fr, torch_batch(batch), region, t, step_h=2,
                              former=t_q.BatchFormer(min_pad=ONE_SHAPE)))
+
+
+class TestRefitDivergence:
+    """ROADMAP C5: the benchmark's online-refit row at 30k (two-day
+    deferrable stream, DC caps of 60% of the mean hourly arrivals, serve
+    steps of two hours, a first refit after N/12 settled requests, then
+    every N/6). Each package refits with its own scheduler, and a few
+    near-tie decisions after a refit differ from the reference's. The
+    cause is the refitted params alone: the port's serve loop with the
+    reference's params swapped in at every refit is decision-identical to
+    the reference's, and on the reference's own buffer the two fits'
+    scores agree to float32 rounding of the normal equations."""
+
+    N = 30_000
+    PAD = 8192  # every draft pads to one shape (one compile a router)
+
+    @pytest.fixture(scope="class")
+    def runs(self, env):
+        n = self.N
+        table = r_ds.build_scenarios(
+            r_inf.paper_fleet(), r_ds.ScenarioAxes(hours=tuple(range(0, 24,
+                                                                     4))))
+        train = r_sch.build_dataset(
+            r_wl.ALL_PAPER_WORKLOADS,
+            r_ds.explore(r_wl.ALL_PAPER_WORKLOADS, table), table).split()[0]
+        r_static = r_pol.LearnedPolicy.fit(
+            r_sch.ClassificationScheduler(carbon_head=False), train,
+            infra=env["r_inf"])
+        t_static = t_pol.LearnedPolicy(
+            params=t_sch.load_fitted_params(
+                {k: np.asarray(v) for k, v in r_static.params.items()},
+                device=CPU),
+            score_fn=t_sch.ClassificationScheduler.torch_scores,
+            feat_mean=torch.as_tensor(np.array(r_static.feat_mean)),
+            feat_std=torch.as_tensor(np.array(r_static.feat_std)),
+            name=r_static.name, infra=env["t_inf"],
+            ci_sens=torch.as_tensor(np.array(r_static.ci_sens)))
+        batch, region, t = r_streams.deferrable_stream_multiday(
+            n, R, n_days=2)
+        caps = np.full((R, 3), np.inf)
+        caps[:, 1] = caps[:, 2] = max(1.0, 0.6 * n / (R * 48))
+        kw = dict(min_observations=max(256, n // 12),
+                  refit_every=max(512, n // 6))
+        fitted = []  # (buffer, params) of each reference refit
+
+        class Recording(r_online.OnlineRefitter):
+            def step(self, fr):
+                fr, swapped = super().step(fr)
+                if swapped:
+                    fitted.append((self.buffer.dataset(),
+                                   fr.policy.inner.params))
+                return fr, swapped
+
+        grids = (r_ci.CarbonGrid.fully_connected(latency_penalty=1.05,
+                                                 n_days=2),
+                 t_ci.CarbonGrid.fully_connected(latency_penalty=1.05,
+                                                 n_days=2, device=CPU))
+
+        def served(pkg, refitter):
+            r_fr, t_fr = serve_routers(env, "temporal", caps, grids=grids,
+                                       inner=(r_static, t_static),
+                                       max_defer_h=16)
+            if pkg == "r":
+                return r_q.serve_stream(
+                    r_fr, batch, region, t, step_h=2, refitter=refitter,
+                    former=r_q.BatchFormer(min_pad=self.PAD))
+            return t_q.serve_stream(
+                t_fr, torch_batch(batch), region, t, step_h=2,
+                refitter=refitter, former=t_q.BatchFormer(min_pad=self.PAD))
+
+        r_res = served("r", Recording(**kw))
+        queued = [params for _, params in fitted]
+
+        class ReferenceParams(t_sch.ClassificationScheduler):
+            def fit_params(self, train):
+                return {k: torch.as_tensor(np.array(v))
+                        for k, v in queued.pop(0).items()}
+
+        swapped = served("t", t_online.OnlineRefitter(
+            scheduler_factory=ReferenceParams, **kw))
+        own = served("t", t_online.OnlineRefitter(**kw))
+        return r_res, swapped, own, fitted
+
+    def test_reference_params_serve_identically(self, runs):
+        r_res, swapped, _, fitted = runs
+        assert len(fitted) == r_res.refits >= 4
+        assert_served_equal(r_res, swapped)
+
+    def test_own_fits_agree_to_rounding(self, runs):
+        """Each reference refit's buffer, fitted by the port: the scores
+        of the buffer's rows within 5e-5 of their largest magnitude (the
+        two packages sum the float32 gram in different orders)."""
+        import jax.numpy as jnp
+
+        for buffer, params in runs[3]:
+            got = t_sch.ClassificationScheduler().fit_params(
+                t_sch.SchedulerDataset(**dataclasses.asdict(buffer)))
+            X = np.asarray(buffer.features)
+            want = np.asarray(r_sch.ClassificationScheduler.jax_scores(
+                params, jnp.asarray(X)))
+            s = t_sch.ClassificationScheduler.torch_scores(
+                got, torch.as_tensor(X)).numpy()
+            assert np.abs(s - want).max() <= 5e-5 * np.abs(want).max()
+
+    def test_own_fits_flip_a_few_decisions_after_a_refit(self, runs):
+        """The divergence itself: with each package's own fits, some
+        decisions differ (this fails once the fits agree bit for bit, and
+        C5 can close), all of them few and routed by refitted params."""
+        r_res, _, own, _ = runs
+        first_refit = min(s.now for s in r_res.steps if s.refit)
+        flipped = np.zeros(self.N, bool)
+        for f in ("target", "exec_region", "exec_hour", "shed"):
+            flipped |= np.asarray(getattr(own, f)) != getattr(r_res, f)
+        assert 0 < flipped.sum() <= self.N // 1000
+        assert (r_res.step[flipped] > first_refit).all()
+        assert (own.step[flipped] > first_refit).all()
+        assert abs(own.shed_count - r_res.shed_count) <= flipped.sum()

@@ -6,8 +6,9 @@ under caps), every commitment, the per-step conservation ledger and the
 settled carbon; ``BatchFormer`` drafts (pow-2 padding, KV sizing by an
 engine and by ``for_envelope``); ``admit_batches`` and
 ``admit_windows(queue=)``. Integers exactly, carbon within rtol 1e-5. The
-stubs that wait for ROADMAP items 8 and 9 raise. The online refit is in
-``test_torch_online.py``."""
+stub that waits for ROADMAP item 9 raises. The online refit is in
+``test_torch_online.py``; ``serve_stream(plan=...)`` is in
+``test_torch_provision.py``."""
 
 import dataclasses
 import warnings
@@ -294,13 +295,6 @@ class TestAdmission:
 
 class TestStubs:
     """The parts that wait for other ROADMAP items raise, naming them."""
-
-    def test_plan_is_item_8(self, env):
-        _, t_fr = serve_routers(env, "placement", np.full((R, 3), np.inf))
-        batch, region, t = r_streams.arrival_stream(5.0, n_regions=R, seed=0)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            t_q.serve_stream(t_fr, torch_batch(batch), region, t,
-                             plan=object())
 
     def test_mesh_is_item_9(self, env):
         with pytest.raises(NotImplementedError, match="item 9"):

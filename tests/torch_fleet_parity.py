@@ -9,12 +9,26 @@ rtol 1e-5 (ROADMAP.md's parity bar)."""
 import dataclasses
 
 import numpy as np
+import pytest
+import torch
 
 from repro_torch.serve import router as t_router
 
 RTOL = 1e-5
 CPU = "cpu"
 ARCH = "h2o-danube-1.8b"
+
+
+@pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op thread for the module's tests, restored after them:
+    with several test workers on one machine, torch's default pool (a
+    thread a core in every worker) oversubscribes the cores and its many
+    small ops then wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def host(x):
