@@ -6,7 +6,8 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py [--profile] [--seed N]
 
 ``--profile`` adds a torch.profiler breakdown of device time by kernel
-over one warm prefill and the decode steps of each served path (the top
+over one warm prefill and the decode steps of each served path (the model
+branches' too) (the top
 kernels, and every SSD sub-kernel by name), and of one warm ``xregion``
 and one ``temporal_joint`` route of the decide half, and of one warm rolling
 re-plan and one warm queue run of the serving loop, of one warm
@@ -35,14 +36,15 @@ Phases (any failure ends the script with a non-zero exit):
 3. Drive the three served paths through ``repro_torch.launch.serve.main``,
    each at full width, routing one request and generating (4, 16) tokens
    from (4, 512) prompts, the launch counters set to 0 just before each
-   and read just after; each count must be exact:
+   and read just after; each count must equal ``kernel_launches``:
    - ``h2o-danube-1.8b`` f32 (24 layers): 24 flash, 49 x 16 RMSNorm; its
      prefill logits through the kernels match the plain versions;
    - ``mamba2-780m`` f32 (48 layers): 48 SSD scans, 97 x 16 RMSNorm; its
      prefill logits through the kernels match the plain versions;
    - ``qwen3-moe-30b-a3b`` bf16 (48 layers): 48 flash, 97 x 16 RMSNorm,
-     3 x 48 x 16 grouped matmuls; logits finite, each layer's MoE through
-     the kernels matches the plain versions on the same input.
+     3 x 48 x 16 grouped matmuls; logits finite, each layer's attention
+     and MoE through the kernels match the plain versions on the same
+     input (``layers_vs_plain``).
 4. Check the card against the CPU on small inputs: the three smoke
    configs' logits and greedy tokens, and the full config's routing
    decision.
@@ -105,6 +107,24 @@ Phases (any failure ends the script with a non-zero exit):
    ``h2o-danube-1.8b`` engine in f32, the counters set to 0 just before
    and read just after: 24 flash and 49 x 8 RMSNorm (one prefill, eight
    forward passes), no SSD scan, no grouped matmul.
+10. ``[branches]``: the model branches at full width, batch 4, 16 new
+   tokens, the counters set to 0 just before each run and read just
+   after, each count exact (``kernel_launches``): ``whisper-base`` f32
+   through the launcher (prompt 128, stub encoder frames (4, 1500, 512);
+   the encoder's, the decoder's and the cross attention take the flash
+   kernel at prefill, a decode step's single query the plain einsums),
+   its prefill logits through the kernels against the plain versions
+   within 2e-3; ``qwen2-vl-7b`` bf16 through the launcher text-only, then
+   through ``ServeEngine`` with 1024 patch embeddings over the first 1024
+   of a 1280-token prompt at 32 x 32 grid M-RoPE positions, its attention
+   layer by layer against the plain versions (2e-2) on both runs;
+   ``jamba-v0.1-52b`` bf16 at 16 of its 32 layers
+   (the full model's 103 GB do not fit the card) through ``ServeEngine``,
+   its attention and MoE (2e-2) and SSD scans (y 5e-2, state 5e-3) layer
+   by layer; warm prefill and decode times with the card's name and power
+   limit; then card == CPU on the three smoke configs (logits within 1e-4,
+   greedy tokens equal). ``--profile`` adds each path's prefill and decode
+   breakdown.
 
 The second-last line is one JSON object ``{"kernels": [...]}`` with each
 kernel's launches on the served paths, error, times and bound; the line
@@ -136,12 +156,36 @@ DANUBE, MAMBA, QWEN3 = "h2o-danube-1.8b", "mamba2-780m", "qwen3-moe-30b-a3b"
 # and gated d_inner, qwen3 bf16) and one decode shape.
 NORM_TIMED = [((2048, 2560), "float32"), ((2048, 1536), "float32"),
               ((2048, 3072), "float32"), ((2048, 2048), "bfloat16"),
-              ((4, 2560), "float32")]
+              ((4, 2560), "float32"),
+              # the model branches: whisper's encoder and decoder prefill
+              # (f32), qwen2-vl's text-only and patch prefills, jamba's
+              # d_model and gated d_inner (bf16)
+              ((6000, 512), "float32"), ((512, 512), "float32"),
+              ((2048, 3584), "bfloat16"), ((5120, 3584), "bfloat16"),
+              ((2048, 4096), "bfloat16"),
+              ((2048, 8192), "bfloat16")]
 # Timed SSD scans (label, B, S, H, P, N, chunk), f32, mamba2-780m's A and
 # dt: the served prefill (the kernels line's own row) and a long prompt,
 # whose 64 chunks show the chunk parallelism that S = 512 hides.
 SSD_TIMED = [("main", BATCH, PROMPT, 48, 64, 128, 256),
              ("long prompt", 1, 4096, 48, 64, 128, 256)]
+# jamba-v0.1-52b's Mamba layers at prefill, bf16: H 128, P 64, N 16
+SSD_JAMBA = ("jamba", BATCH, PROMPT, 128, 64, 16, 128)
+# Timed flash shapes of the model branches (label, B, Sq, Sk, H, Hkv, D,
+# causal, dtype name): whisper's encoder self-attention, its cross
+# attention at prefill (Sk 1500: a ragged last key tile) and, off the path,
+# at one query (a decode step takes the plain einsums, which this row
+# times against the kernel), its decoder self-attention; qwen2-vl's
+# text-only and patch prefills (GQA group 7); jamba's.
+FLASH_BRANCHES = [
+    ("whisper encoder", BATCH, 1500, 1500, 8, 8, 64, False, "float32"),
+    ("whisper cross", BATCH, 128, 1500, 8, 8, 64, False, "float32"),
+    ("whisper cross Sq 1", BATCH, 1, 1500, 8, 8, 64, False, "float32"),
+    ("whisper decoder", BATCH, 128, 128, 8, 8, 64, True, "float32"),
+    ("qwen2-vl text", BATCH, PROMPT, PROMPT, 28, 4, 128, True, "bfloat16"),
+    ("qwen2-vl patches", BATCH, 1280, 1280, 28, 4, 128, True, "bfloat16"),
+    ("jamba", BATCH, PROMPT, PROMPT, 32, 8, 128, True, "bfloat16"),
+]
 
 
 def fail(msg: str) -> None:
@@ -187,10 +231,11 @@ def ptxas_summary(log: str) -> list[str]:
             for x in out]
 
 
-def profile_path(torch, engine, prompt, label: str) -> None:
+def profile_path(torch, engine, prompt, label: str, extras=None) -> None:
     """Device time by kernel over one warm prefill and the decode steps of
-    one batch (torch.profiler). Only device-side events count: an aten
-    op's own device time repeats the kernels it launched."""
+    one batch (torch.profiler); ``extras`` go to the prefill. Only
+    device-side events count: an aten op's own device time repeats the
+    kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -210,7 +255,7 @@ def profile_path(torch, engine, prompt, label: str) -> None:
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch_profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        logits, state = engine.prefill_batch(prompt)
+        logits, state = engine.prefill_batch(prompt, **(extras or {}))
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e6
     report("prefill", prof, wall)
@@ -982,6 +1027,244 @@ def tour_phase(torch, results) -> None:
     torch.cuda.empty_cache()
 
 
+# The model branches (phase 10): whisper-base f32 through the launcher at
+# a 128-token prompt against 1500 encoder frames; qwen2-vl-7b bf16 through
+# the launcher (text-only, as the reference launcher runs it), then with
+# 1024 patch embeddings over the first 1024 of a 1280-token prompt at
+# grid positions; jamba-v0.1-52b bf16 through the engine at 16 of its 32
+# layers (two whole 8-layer super-blocks, ~26 B params, ~52 GB: the full
+# 103 GB does not fit the card, three super-blocks leave no room for
+# activations and caches).
+WHISPER, QWEN2VL, JAMBA = "whisper-base", "qwen2-vl-7b", "jamba-v0.1-52b"
+WHISPER_PROMPT = 128
+VLM_PROMPT, VLM_GRID = 1280, 32  # 32 x 32 = 1024 patches, then 256 text
+JAMBA_LAYERS = 16
+
+
+def grid_positions(torch, batch: int, seq: int, side: int, device):
+    """(3, B, S) M-RoPE positions of a side x side patch grid followed by
+    text: patch i at (t 0, h i // side, w i % side), text token j at
+    t = h = w = side + j."""
+    n = side * side
+    i = torch.arange(n, device=device)
+    text = side + torch.arange(seq - n, device=device)
+    pos = torch.stack([torch.cat([torch.zeros_like(i), text]),
+                       torch.cat([i // side, text]),
+                       torch.cat([i % side, text])])
+    return pos[:, None].expand(3, batch, seq).contiguous()
+
+
+def layers_vs_plain(torch, run, label: str, tag: str) -> None:
+    """A bf16 model's kernels against the plain versions layer by layer:
+    the plain path's prefill, recording what enters each attention layer
+    (its norm1 output), each MoE layer and each SSD scan; then each through
+    the kernels and through the plain versions on that same input. With one
+    input the routing is one, so the MoE outputs compare at the bf16
+    tolerance (whole-model bf16 logits do not: one flipped top-k choice
+    upstream moves them far)."""
+    import dataclasses
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.moe import moe_forward
+
+    model = run.engine.model
+    cfg = model.cfg
+    normed, moe_in, ssd_in = {}, {}, []
+    hooks = []
+    for i, layer in enumerate(model.layers):
+        if layer.kind.mixer == "attn":
+            hooks.append(layer.norm1.register_forward_hook(
+                lambda mod, args, out, i=i: normed.__setitem__(i, out)))
+        if layer.kind.ff == "moe":
+            hooks.append(layer.moe.register_forward_pre_hook(
+                lambda mod, args, i=i: moe_in.__setitem__(
+                    i, args[0].clone())))
+
+    def ssd_recorded(*args, **kw):
+        ssd_in.append((args, kw))
+        return ref.ssd_ref(*args, **kw)
+
+    with torch.no_grad():
+        lp, _ = model.prefill(
+            run.prompt, max_seq=run.engine.max_seq, **run.extras,
+            kernels=dataclasses.replace(ops.PLAIN, ssd_scan=ssd_recorded))
+    for h in hooks:
+        h.remove()
+    check(bool(torch.isfinite(lp).all()), f"{label}: plain prefill")
+    del lp
+    kinds = [(layer.kind.mixer, layer.kind.ff) for layer in model.layers]
+    check((len(normed), len(moe_in), len(ssd_in)) == (
+        sum(m == "attn" for m, _ in kinds), sum(f == "moe" for _, f in kinds),
+        sum(m == "mamba" for m, _ in kinds)),
+        f"{label}: a layer's input was not recorded")
+    positions = model._positions(run.prompt, run.extras.get("positions"))
+    tol = TOL["bfloat16"]
+    worst = {"attention": 0.0, "MoE": 0.0, "SSD y": 0.0, "SSD state": 0.0}
+
+    def held(kind, i, got, want, tol_):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        worst[kind] = max(worst[kind], err)
+        check(torch.allclose(got.float(), want.float(), atol=tol_,
+                             rtol=tol_),
+              f"{label} layer {i}: {kind} through the kernels disagrees "
+              f"with the plain versions (max_abs_err {err:.3e})")
+
+    with torch.no_grad():
+        for i, h in normed.items():
+            layer = model.layers[i]
+            held("attention", i, *(attn_mod.attention(
+                layer.attn, cfg, h, positions, ks)[0]
+                for ks in (ops.KERNELS, ops.PLAIN)), tol)
+        for i, h in moe_in.items():
+            held("MoE", i, *(moe_forward(model.layers[i].moe, cfg, h,
+                                         kernels=ks)[0]
+                             for ks in (ops.KERNELS, ops.PLAIN)), tol)
+        for j, (args, kw) in enumerate(ssd_in):
+            (y, st), (yr, sr) = (ops.ssd_scan(*args, **kw),
+                                 ref.ssd_ref(*args, **kw))
+            held("SSD y", j, y, yr, SSD_Y_TOL[dtype_name(y.dtype)])
+            held("SSD state", j, st, sr, SSD_STATE_TOL)
+    print(f"[{tag}] {label} layer by layer, kernels vs plain on the "
+          f"plain path's inputs: {len(normed)} attention, {len(moe_in)} "
+          f"MoE, {len(ssd_in)} SSD layers; worst max_abs_err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (atol = rtol = {tol:g}; SSD y "
+          f"{SSD_Y_TOL['bfloat16']:g}, state {SSD_STATE_TOL:g})")
+
+
+def branches_phase(torch, dev, results, profile: bool, seed: int, card: str,
+                   drive, warm, kernels_vs_plain) -> None:
+    """Phase 10: serve the three model branches at full width on the card
+    with exact launch counters, hold their kernels against the plain
+    versions (whisper's prefill logits whole; qwen2-vl's and jamba's
+    attention, MoE and SSD layer by layer), then card == CPU on the three
+    smoke configs."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import Transformer, kernel_launches
+    from repro_torch.serve import ServeEngine
+
+    def engine_run(label, model, prompt, extras):
+        """A ServeEngine batch with the counters set to 0 just before it
+        and read just after; the counts must equal ``kernel_launches``."""
+        engine = ServeEngine(model.cfg, model, device=dev,
+                             max_seq=prompt.shape[1] + NEW + 8)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        tokens = engine.generate(prompt, max_new_tokens=NEW, **extras)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        want = dict({k: 0 for k in launches},
+                    **kernel_launches(model.cfg, NEW - 1))
+        check(launches == want, f"{label}: launch counts {launches}, "
+              f"expected {want}")
+        check(tuple(tokens.shape) == (BATCH, NEW) and bool(
+            ((tokens >= 0) & (tokens < model.cfg.vocab_size)).all()),
+            f"{label}: tokens")
+        print(f"[branches] {label}: prompt {tuple(prompt.shape)}, {NEW} new "
+              f"tokens in {wall:.3f} s; launches {launches}")
+        for name, r in results.items():
+            r["launches_by_path"][label] = launches[name]
+        run = serve.ServeRun(cfg=model.cfg, decision=None, engine=engine,
+                             prompt=prompt, tokens=tokens, extras=extras)
+        warm(run, label, tag="branches", card=f" [{card}]")
+        return run
+
+    # --- whisper-base, f32, through the launcher ---------------------------
+    cfg_w = get_config(WHISPER)
+    run = drive(WHISPER, "float32", kernel_launches(cfg_w, NEW - 1),
+                prompt=WHISPER_PROMPT)
+    warm(run, WHISPER, tag="branches", card=f" [{card}]")
+    kernels_vs_plain(run, WHISPER)
+    run = None
+    torch.cuda.empty_cache()
+
+    # --- qwen2-vl-7b, bf16: launcher text-only, then patches on a grid -----
+    cfg_v = get_config(QWEN2VL)
+    run = drive(QWEN2VL, "bfloat16", kernel_launches(cfg_v, NEW - 1))
+    warm(run, QWEN2VL, tag="branches", card=f" [{card}]")
+    layers_vs_plain(torch, run, f"{QWEN2VL} text", "branches")
+    model = run.engine.model
+    run = None
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prompt = torch.randint(0, cfg_v.vocab_size, (BATCH, VLM_PROMPT),
+                           generator=gen, device=dev)
+    extras = {"patch_embeds": (torch.randn(
+        (BATCH, VLM_GRID * VLM_GRID, cfg_v.d_model), generator=gen,
+        device=dev) * 0.02).to(torch.bfloat16),
+        "positions": grid_positions(torch, BATCH, VLM_PROMPT, VLM_GRID, dev)}
+    run = engine_run(f"{QWEN2VL} patches", model, prompt, extras)
+    layers_vs_plain(torch, run, f"{QWEN2VL} patches", "branches")
+    del model
+    run = None
+    torch.cuda.empty_cache()
+
+    # --- jamba-v0.1-52b, bf16, 16 layers, through the engine --------------
+    cfg_j = dataclasses.replace(get_config(JAMBA), n_layers=JAMBA_LAYERS)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = Transformer(cfg_j, device=dev, dtype=torch.bfloat16,
+                        generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg_j.param_count(), "jamba parameter count")
+    print(f"[branches] {JAMBA}: depth cut to {JAMBA_LAYERS} of "
+          f"{get_config(JAMBA).n_layers} layers (two 8-layer super-blocks; "
+          f"the full model's {get_config(JAMBA).param_count() * 2 / 1e9:.1f}"
+          f" GB of bf16 weights exceed the card), {n_params / 1e9:.3f} B "
+          f"bf16 params, {torch.cuda.memory_allocated() / 1e9:.1f} GB "
+          f"allocated; built in {time.perf_counter() - t0:.1f} s")
+    prompt = torch.randint(0, cfg_j.vocab_size, (BATCH, PROMPT),
+                           generator=gen, device=dev)
+    label = f"{JAMBA} ({JAMBA_LAYERS} layers)"
+    run = engine_run(label, model, prompt, {})
+    layers_vs_plain(torch, run, label, "branches")
+    del model
+    run = None
+    torch.cuda.empty_cache()
+
+    # --- card against CPU on the smoke configs -----------------------------
+    for arch in (WHISPER, QWEN2VL, JAMBA):
+        smoke = get_config(arch, smoke=True)
+        cpu_model = Transformer(smoke, device="cpu",
+                                generator=torch.Generator().manual_seed(1))
+        gpu_model = Transformer(smoke, device=dev)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        g = torch.Generator().manual_seed(2)
+        toks = torch.randint(0, smoke.vocab_size, (2, 40), generator=g)
+        extras = {}
+        if smoke.is_encoder_decoder:
+            extras["encoder_frames"] = torch.randn(
+                (2, smoke.encoder_seq, smoke.d_model), generator=g) * 0.02
+        if smoke.mrope:
+            extras["patch_embeds"] = torch.randn(
+                (2, 16, smoke.d_model), generator=g) * 0.02
+            extras["positions"] = grid_positions(torch, 2, 40, 4, "cpu")
+        on_dev = {k: v.to(dev) for k, v in extras.items()}
+        lc, _ = cpu_model.prefill(toks, max_seq=64, **extras)
+        lg, _ = gpu_model.prefill(toks.to(dev), max_seq=64, **on_dev)
+        err = (lg.cpu() - lc).abs().max().item()
+        check(torch.allclose(lg.cpu(), lc, atol=1e-4, rtol=1e-4),
+              f"{smoke.name} logits on the card disagree with the CPU "
+              f"(max_abs_err {err:.3e})")
+        eng = {d: ServeEngine(smoke, m, max_seq=64, device=d)
+               for d, m in (("cpu", cpu_model), ("cuda", gpu_model))}
+        tc = eng["cpu"].generate(toks, max_new_tokens=12, **extras)
+        tg = eng["cuda"].generate(toks, max_new_tokens=12, **extras)
+        check(torch.equal(tc, tg.cpu()),
+              f"{smoke.name} greedy tokens differ card vs CPU")
+        print(f"[branches] {smoke.name} card vs CPU: prefill logits "
+              f"max_abs_err {err:.3e} (atol = rtol = 1e-4); greedy tokens "
+              f"equal")
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     args = sys.argv[1:]
     profile = "--profile" in args
@@ -998,8 +1281,7 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch import serve
-    from repro_torch.models import Transformer
-    from repro_torch.models.moe import moe_forward
+    from repro_torch.models import Transformer, kernel_launches
     from repro_torch.serve import GreenScaleRouter, Request, ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1108,6 +1390,26 @@ def main() -> None:
                 replaces="src/repro/kernels/flash_attention.py:27")
         else:
             flash_more.append(r)
+    for label, B, Sq, Sk, H, Hkv, D, causal, dname in FLASH_BRANCHES:
+        dtype = getattr(torch, dname)
+        q = randn((B, Sq, H, D), dtype)
+        k, v = randn((B, Sk, Hkv, D), dtype), randn((B, Sk, Hkv, D), dtype)
+        err = compare(f"flash_attention {label} q{(B, Sq, H, D)} "
+                      f"kv{(B, Sk, Hkv, D)} causal={causal} {dname}",
+                      ops.flash_attention(q, k, v, causal=causal),
+                      ref.flash_attention_ref(q, k, v, causal=causal),
+                      TOL[dname])
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        flash_more.append(timed(
+            "flash_attention", f"{label} q{(B, Sq, H, D)} kv{(B, Sk, Hkv, D)}"
+            f" {'causal' if causal else 'non-causal'} {dname}", err,
+            lambda: ops.flash_attention(q, k, v, causal=causal),
+            lambda: ref.flash_attention_ref(q, k, v, causal=causal),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True),
+            (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+            4 * B * H * D * pairs, dtype))
     results["flash_attention"]["other_shapes"] = flash_more
 
     # RMSNorm
@@ -1117,7 +1419,13 @@ def main() -> None:
                   # qwen3 (bf16) and mamba2 (f32: d_model, gated d_inner)
                   ((2048, 2048), torch.bfloat16), ((4, 2048), torch.bfloat16),
                   ((2048, 1536), torch.float32), ((2048, 3072), torch.float32),
-                  ((4, 1536), torch.float32), ((4, 3072), torch.float32)]
+                  ((4, 1536), torch.float32), ((4, 3072), torch.float32),
+                  # whisper (f32), qwen2-vl and jamba (bf16)
+                  ((6000, 512), torch.float32), ((512, 512), torch.float32),
+                  ((4, 512), torch.float32), ((2048, 3584), torch.bfloat16),
+                  ((5120, 3584), torch.bfloat16), ((4, 3584), torch.bfloat16),
+                  ((2048, 4096), torch.bfloat16), ((4, 4096), torch.bfloat16),
+                  ((2048, 8192), torch.bfloat16), ((4, 8192), torch.bfloat16)]
     norm_more = []
     for shape, dtype in norm_cases:
         x = randn(shape, dtype)
@@ -1179,6 +1487,8 @@ def main() -> None:
 
     ssd_cases = [  # (label, B, S, H, P, N, chunk, dtype, initial state)
         *((c[0], *c[1:], torch.float32, False) for c in SSD_TIMED),
+        (*SSD_JAMBA, torch.bfloat16, False),
+        (*SSD_JAMBA, torch.float32, False),
         ("main, initial state", BATCH, PROMPT, 48, 64, 128, 256,
          torch.float32, True),
         ("ragged S=100", 2, 100, 8, 64, 128, 32, torch.float32, False),
@@ -1190,7 +1500,7 @@ def main() -> None:
                                   (1, 128, 16, 32, 32, 32),
                                   (2, 96, 4, 8, 8, 24),
                                   (1, 64, 8, 64, 128, 16))]
-    timed_labels = [c[0] for c in SSD_TIMED]
+    timed_labels = [c[0] for c in SSD_TIMED] + [SSD_JAMBA[0]]
     ssd_more = []
     for label, B, S, H, P, N, L, dtype, init in ssd_cases:
         args = ssd_inputs(B, S, H, P, N, dtype, init,
@@ -1203,11 +1513,14 @@ def main() -> None:
         err = compare(f"{name} {dtype_name(dtype)} y", y, yr,
                       SSD_Y_TOL[dtype_name(dtype)])
         compare(f"{name} final state", sf, sr, SSD_STATE_TOL)
-        if label not in timed_labels:
+        if label not in timed_labels or (label == SSD_JAMBA[0]
+                                         and dtype != torch.bfloat16):
             continue
         nbytes, flops = ssd_work(B, S, H, P, N, L, x.element_size(), init)
+        # float32 operations: the kernels compute in float32 whatever x is
         r = timed(
-            "ssd_scan", f"x{(B, S, H, P)} B/C{(B, S, 1, N)} chunk {L} float32",
+            "ssd_scan", f"{label} x{(B, S, H, P)} B/C{(B, S, 1, N)} chunk {L}"
+            f" {dtype_name(dtype)}",
             err, lambda: ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=L),
             lambda: ref.ssd_ref(x, dt, A, Bm, Cm, D), None, nbytes, flops,
             torch.float32, plain_reps=3 if S <= PROMPT else 1,
@@ -1230,6 +1543,12 @@ def main() -> None:
         ("prefill gate/up", 128, 160, 2048, 768, torch.float32),
         ("decode down", 128, 8, 768, 2048, torch.bfloat16),
         ("decode down", 128, 8, 768, 2048, torch.float32),
+        # jamba-v0.1-52b's experts: 16 of width 14336, C = 2 x 160 at
+        # prefill, 8 at decode
+        ("jamba prefill gate/up", 16, 320, 4096, 14336, torch.bfloat16),
+        ("jamba prefill down", 16, 320, 14336, 4096, torch.bfloat16),
+        ("jamba decode gate/up", 16, 8, 4096, 14336, torch.bfloat16),
+        ("jamba decode down", 16, 8, 14336, 4096, torch.bfloat16),
     ] + [("sweep", e, c, d, f, dt_) for dt_ in (torch.float32, torch.bfloat16)
          for e, c, d, f in ((4, 32, 64, 48), (8, 16, 32, 32),
                             (2, 128, 128, 128), (16, 8, 16, 8))]
@@ -1242,7 +1561,7 @@ def main() -> None:
         if dtype != torch.bfloat16 or label == "sweep":
             continue
         r = timed("grouped_matmul",
-                  f"{(E, C, d)}@{(E, d, f)} {dtype_name(dtype)}", err,
+                  f"{label} {(E, C, d)}@{(E, d, f)} {dtype_name(dtype)}", err,
                   lambda: ops.grouped_matmul(x, w),
                   lambda: ref.grouped_matmul_ref(x, w),
                   lambda: torch.bmm(x, w),
@@ -1279,14 +1598,14 @@ def main() -> None:
     for r in results.values():
         r["launches_by_path"] = {}
 
-    def drive(arch, dtype, want):
+    def drive(arch, dtype, want, prompt=PROMPT):
         """One launcher run with the counters set to 0 just before it and
         read just after; the counts must equal ``want``."""
         ops.reset_launches()
         t0 = time.perf_counter()
         run = serve.main(["--arch", arch, "--no-smoke", "--device", "cuda",
                           "--dtype", dtype, "--batch", str(BATCH),
-                          "--prompt-len", str(PROMPT),
+                          "--prompt-len", str(prompt),
                           "--new-tokens", str(NEW)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1298,7 +1617,12 @@ def main() -> None:
               f"{tuple(run.tokens.shape)}; {wall:.1f} s including init; "
               f"launches {launches}")
         check(cfg.name == arch, "not the full config")
-        check(n_params == cfg.param_count(), "parameter count")
+        # the launcher sizes a learned position table to the request
+        n_pos = (run.engine.model.pos_embed.shape[0]
+                 if cfg.is_encoder_decoder else cfg.max_position_embeddings)
+        check(n_params == cfg.param_count() + (
+            n_pos - cfg.max_position_embeddings) * cfg.d_model,
+            "parameter count")
         check(tuple(run.tokens.shape) == (BATCH, NEW), "token shape")
         check(bool(((run.tokens >= 0) & (run.tokens < cfg.vocab_size)).all()),
               "token ids out of range")
@@ -1309,10 +1633,10 @@ def main() -> None:
             r["launches_by_path"][arch] = launches[name]
         return run
 
-    def warm(run, label):
+    def warm(run, label, tag="main", card=""):
         engine = run.engine
         t0 = time.perf_counter()
-        logits, state = engine.prefill_batch(run.prompt)
+        logits, state = engine.prefill_batch(run.prompt, **run.extras)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         outs = [logits]
@@ -1322,18 +1646,22 @@ def main() -> None:
             outs.append(logits)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        print(f"[main] {label} again, warm: prefill ({BATCH}, {PROMPT}) "
-              f"{t1 - t0:.4f} s, {NEW - 1} decode steps {t2 - t1:.4f} s "
-              f"({(t2 - t1) / (NEW - 1) * 1e3:.2f} ms/step)")
+        print(f"[{tag}] {label} again, warm: prefill "
+              f"{tuple(run.prompt.shape)} {t1 - t0:.4f} s{card}")
+        print(f"[{tag}] {label} again, warm: {NEW - 1} decode steps "
+              f"{t2 - t1:.4f} s ({(t2 - t1) / (NEW - 1) * 1e3:.2f} ms/step)"
+              f"{card}")
         check(all(bool(torch.isfinite(o).all()) for o in outs),
               f"{label}: non-finite logits")
         if profile:
-            profile_path(torch, engine, run.prompt, label)
+            profile_path(torch, engine, run.prompt, label, run.extras)
 
     def kernels_vs_plain(run, label):
         model, max_seq = run.engine.model, run.engine.max_seq
-        lk, _ = model.prefill(run.prompt, max_seq=max_seq, kernels=ops.KERNELS)
-        lp, _ = model.prefill(run.prompt, max_seq=max_seq, kernels=ops.PLAIN)
+        lk, _ = model.prefill(run.prompt, max_seq=max_seq, kernels=ops.KERNELS,
+                              **run.extras)
+        lp, _ = model.prefill(run.prompt, max_seq=max_seq, kernels=ops.PLAIN,
+                              **run.extras)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(lk).all()), f"{label}: non-finite logits")
         err = (lk - lp).abs().max().item()
@@ -1344,61 +1672,23 @@ def main() -> None:
               f"{label}: prefill logits through the kernels disagree with "
               "the plain path")
 
-    L_D = get_config(DANUBE).n_layers
-    run = drive(DANUBE, "float32", {"flash_attention": L_D,
-                                    "fused_rmsnorm": (2 * L_D + 1) * NEW})
+    run = drive(DANUBE, "float32", kernel_launches(get_config(DANUBE),
+                                                   NEW - 1))
     warm(run, DANUBE)
     kernels_vs_plain(run, DANUBE)
     run = None
     torch.cuda.empty_cache()
 
-    L_M = get_config(MAMBA).n_layers
-    run = drive(MAMBA, "float32", {"ssd_scan": L_M,
-                                   "fused_rmsnorm": (2 * L_M + 1) * NEW})
+    run = drive(MAMBA, "float32", kernel_launches(get_config(MAMBA), NEW - 1))
     warm(run, MAMBA)
     kernels_vs_plain(run, MAMBA)
     run = None
     torch.cuda.empty_cache()
 
-    cfg_q = get_config(QWEN3)
-    L_Q = cfg_q.n_layers
-    run = drive(QWEN3, "bfloat16", {"flash_attention": L_Q,
-                                    "fused_rmsnorm": (2 * L_Q + 1) * NEW,
-                                    "grouped_matmul": 3 * L_Q * NEW})
+    run = drive(QWEN3, "bfloat16", kernel_launches(get_config(QWEN3),
+                                                   NEW - 1))
     warm(run, QWEN3)
-    # Each layer's MoE on the hidden state that enters it on the plain
-    # path, through both kernel sets: with one input the routing is one,
-    # so the outputs compare at the bf16 tolerance (whole-model bf16
-    # logits do not: one flipped top-8 choice upstream moves them far).
-    model = run.engine.model
-    entering = []
-    hooks = [layer.moe.register_forward_pre_hook(
-        lambda mod, args: entering.append(args[0].clone()))
-        for layer in model.layers]
-    with torch.no_grad():
-        lp, _ = model.prefill(run.prompt, max_seq=run.engine.max_seq,
-                              kernels=ops.PLAIN)
-    for h in hooks:
-        h.remove()
-    check(len(entering) == L_Q and bool(torch.isfinite(lp).all()),
-          "plain prefill of qwen3")
-    del lp
-    worst = 0.0
-    with torch.no_grad():
-        for i, (layer, h) in enumerate(zip(model.layers, entering)):
-            ok_, _ = moe_forward(layer.moe, cfg_q, h, kernels=ops.KERNELS)
-            op_, _ = moe_forward(layer.moe, cfg_q, h, kernels=ops.PLAIN)
-            torch.cuda.synchronize()
-            err = (ok_.float() - op_.float()).abs().max().item()
-            worst = max(worst, err)
-            check(torch.allclose(ok_.float(), op_.float(), atol=TOL["bfloat16"],
-                                 rtol=TOL["bfloat16"]),
-                  f"{QWEN3} layer {i}: MoE through the kernels disagrees "
-                  f"with the plain versions (max_abs_err {err:.3e})")
-    print(f"[main] {QWEN3} each of {L_Q} layers' MoE, kernels vs plain on "
-          f"the plain path's hidden state: worst max_abs_err {worst:.3e} "
-          f"(atol = rtol = {TOL['bfloat16']:g})")
-    del model, entering, hooks
+    layers_vs_plain(torch, run, QWEN3, "main")
     run = None
     torch.cuda.empty_cache()
     print(f"[chip_smoke] served paths done at "
@@ -1463,14 +1753,20 @@ def main() -> None:
     print(f"[chip_smoke] tour phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    # --- phase 10: the model branches at full width ---------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    branches_phase(torch, dev, results, profile, seed, smi, drive, warm,
+                   kernels_vs_plain)
+    print(f"[chip_smoke] branches phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+
     # --- result lines ---------------------------------------------------------
     for name, r in results.items():
         r["launches"] = sum(r["launches_by_path"].values())
         check(r["launches"] > 0, f"{name} was never launched on a served path")
     print(f"[chip_smoke] done at {time.perf_counter() - t_start:.1f} s")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "copy_ms",
             "shape", "launches_by_path", "other_shapes")

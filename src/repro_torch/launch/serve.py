@@ -4,10 +4,13 @@ Routes the batch's request with the ``GreenScaleRouter`` under the hour's
 carbon intensities (the paper's Table-1 decision), then generates through
 the ``ServeEngine``. Port of ``src/repro/launch/serve.py`` with two of its
 defects fixed in this copy: ``--smoke/--no-smoke`` really selects the
-config (default smoke), and the engine runs the kernels. Builds the DENSE,
-SSM and MOE families. Params are ``--dtype`` (float32 by default;
-``qwen3-moe-30b-a3b`` needs bfloat16 to fit one card) and drawn from a
-generator seeded by ``--seed``.
+config (default smoke), and the engine runs the kernels. Builds every
+family; an encoder-decoder (``whisper-base``) gets stub ``encoder_frames``
+(B, encoder_seq, d) x 0.02 from the seed and a position table of
+prompt + new + 8, as the reference launcher makes them; ``qwen2-vl-7b``
+runs text-only, as there. Params are ``--dtype`` (float32 by default;
+``qwen3-moe-30b-a3b`` and ``qwen2-vl-7b`` take bfloat16 on one card) and
+drawn from a generator seeded by ``--seed``.
 """
 
 from __future__ import annotations
@@ -73,6 +76,7 @@ class ServeRun:
     engine: ServeEngine
     prompt: torch.Tensor  # (batch, prompt_len)
     tokens: torch.Tensor  # (batch, new_tokens)
+    extras: dict  # the stub frontend inputs given to the engine
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -97,7 +101,9 @@ def main(argv=None) -> ServeRun:
     dtype = DTYPES[args.dtype]
     check_fits(cfg, dtype, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = Transformer(cfg, device=device, dtype=dtype, generator=gen)
+    max_seq = args.prompt_len + args.new_tokens + 8
+    model = Transformer(cfg, device=device, dtype=dtype, generator=gen,
+                        max_positions=max_seq)
 
     # --- route the batch with GreenScale ------------------------------------
     router = GreenScaleRouter(get_config(args.arch), device=device)
@@ -112,16 +118,20 @@ def main(argv=None) -> ServeRun:
           f"{dict(zip(TARGETS, decision.per_target_carbon))}")
 
     # --- run the batch through the engine ------------------------------------
-    max_seq = args.prompt_len + args.new_tokens + 8
     engine = ServeEngine(cfg, model, max_seq=max_seq, device=device)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device)
-    out = engine.generate(prompt, max_new_tokens=args.new_tokens)
+    extras = {}
+    if cfg.is_encoder_decoder:
+        extras["encoder_frames"] = torch.randn(
+            (args.batch, cfg.encoder_seq, cfg.d_model), generator=gen,
+            device=device).to(dtype) * 0.02
+    out = engine.generate(prompt, max_new_tokens=args.new_tokens, **extras)
     print(f"[engine] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}; "
           f"generated {tuple(out.shape)} tokens; "
           f"first row: {out[0, :8].tolist()}...")
     return ServeRun(cfg=cfg, decision=decision, engine=engine, prompt=prompt,
-                    tokens=out)
+                    tokens=out, extras=extras)
 
 
 if __name__ == "__main__":

@@ -5,7 +5,10 @@ Prefill attention runs through the flash-attention kernel of the kernel set
 it is given. ``decode_attention`` stays plain torch ops, as the reference
 computes it in jnp outside any kernel; it writes the new key/value into the
 cache in place (the reference returns an updated copy), which keeps one
-cache buffer per layer alive instead of two.
+cache buffer per layer alive instead of two. Whisper's cross attention
+(``cross_attention`` over the encoder memory's ``memory_kv``) takes the
+flash kernel with ``causal=False`` at prefill and at decode (Sq = 1), where
+the reference runs its jnp ``sdpa``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import KERNELS, KernelSet
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_mrope, apply_rope, dense_init
 
 
 class Attention(nn.Module):
@@ -59,9 +62,11 @@ def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor):
 
 
 def _rope(cfg: ModelConfig, q, k, positions):
+    """RoPE by positions (B, S), or M-RoPE by positions (3, B, S)."""
     if cfg.mrope:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
-    if cfg.rope_theta > 0:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k
@@ -108,6 +113,8 @@ def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     pos = cache.length  # absolute position of the new token
     q, k, v = _project_qkv(p, cfg, x)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    if cfg.mrope:
+        positions = positions.expand(3, B, 1)
     q, k = _rope(cfg, q, k, positions)
 
     buf = cache.k.shape[1]
@@ -127,12 +134,49 @@ def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         valid = ((k_pos >= 0) & (k_pos > pos - cfg.sliding_window)
                  & (k_pos <= pos))
 
-    Hkv, D, H = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
-    qg = q.reshape(B, 1, Hkv, H // Hkv, D)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, cache.k.to(q.dtype))
-    scores = scores.float() / math.sqrt(D)
-    scores = scores.masked_fill(~valid, float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cache.v.to(q.dtype))
-    out = out.reshape(B, 1, H * D) @ p.wo
+    out = _one_query(q, cache.k, cache.v, valid) @ p.wo
     return out, KVCache(k=cache.k, v=cache.v, length=pos + 1)
+
+
+def _one_query(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               valid: torch.Tensor | None = None) -> torch.Tensor:
+    """One query (B, 1, H, D) over k/v (B, Sk, Hkv, D) by plain einsums
+    with the softmax in f32, keys outside ``valid`` masked -> (B, 1, H*D).
+    A decode step's single query takes this rather than the flash kernel,
+    as the reference's decode does."""
+    B, _, H, D = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, 1, Hkv, H // Hkv, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(q.dtype))
+    scores = scores.float() / math.sqrt(D)
+    if valid is not None:
+        scores = scores.masked_fill(~valid, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.to(q.dtype))
+    return out.reshape(B, 1, H * D)
+
+
+def cross_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                    memory_kv: tuple[torch.Tensor, torch.Tensor],
+                    kernels: KernelSet = KERNELS) -> torch.Tensor:
+    """x (B, Sq, d) attends over the encoder's K/V (B, Sk, Hkv, D), no
+    mask and no rotation; the biases are not applied, as in the
+    reference. A prompt takes the flash kernel, a decode step (Sq = 1) the
+    plain einsums of ``decode_attention``."""
+    B, Sq, _ = x.shape
+    hd = cfg.head_dim
+    q = (x @ p.wq).reshape(B, Sq, cfg.n_heads, hd)
+    k, v = memory_kv
+    if Sq == 1:
+        return _one_query(q, k, v) @ p.wo
+    out = kernels.flash_attention(q, k, v, causal=False)
+    return out.reshape(B, Sq, cfg.n_heads * hd) @ p.wo
+
+
+def memory_kv(p: Attention, cfg: ModelConfig, memory: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The encoder memory's K/V (B, Sk, Hkv, D), once per sequence."""
+    B, Sk, _ = memory.shape
+    hd = cfg.head_dim
+    return ((memory @ p.wk).reshape(B, Sk, cfg.n_kv_heads, hd),
+            (memory @ p.wv).reshape(B, Sk, cfg.n_kv_heads, hd))

@@ -129,8 +129,48 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     inv_freq = torch.as_tensor(rope_frequencies(head_dim, theta),
                                dtype=torch.float32, device=x.device)
     angles = positions[..., None].float() * inv_freq  # (..., S, hd/2)
+    return _rotate(x, angles)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Half-split rotation of x (..., S, heads, hd) by angles (..., S, hd/2)
+    in float32, cast back to x.dtype."""
     cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the (t, h, w) position streams of
+    ``positions`` (3, ..., S) own disjoint channel sections of the rotary
+    half-dim (``sections`` sums to head_dim // 2). Each channel's angle is
+    picked from its stream by index; the reference's one-hot einsum adds
+    exact zeros, so the angles are the same bits."""
+    head_dim = x.shape[-1]
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"mrope sections {sections} do not sum to "
+                         f"head_dim // 2 = {head_dim // 2}")
+    inv_freq = torch.as_tensor(rope_frequencies(head_dim, theta),
+                               dtype=torch.float32, device=x.device)
+    angles_all = positions[..., None].float() * inv_freq  # (3, ..., S, hd/2)
+    sec_id = torch.as_tensor(np.repeat(np.arange(3), sections),
+                             device=x.device)
+    index = sec_id.expand(1, *angles_all.shape[1:])
+    return _rotate(x, angles_all.gather(0, index)[0])
+
+
+# --- Sinusoidal positions (whisper's encoder) ------------------------------
+
+
+def sinusoid_pos(seq: int, d: int, *, device) -> torch.Tensor:
+    """Whisper-style sinusoidal position table (seq, d) in float64, built
+    in numpy as the reference builds it; the caller casts it."""
+    half = d // 2
+    log_timescale = np.log(10000.0) / max(half - 1, 1)
+    inv = np.exp(-log_timescale * np.arange(half))
+    pos = np.arange(seq)[:, None] * inv[None, :]
+    table = np.concatenate([np.sin(pos), np.cos(pos)], axis=1)
+    return torch.as_tensor(table, device=device)

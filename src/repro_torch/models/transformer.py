@@ -1,22 +1,32 @@
-"""Decoder stack of the DENSE, SSM and MOE families (port of
-``src/repro/models/transformer.py``).
+"""The model zoo's decoder stack (port of
+``src/repro/models/transformer.py``): the DENSE, SSM, MOE and HYBRID
+families, whisper's encoder-decoder (AUDIO) and qwen2-vl's M-RoPE backbone
+(VLM).
 
 ``Transformer`` is an ``nn.Module`` whose parameters keep the reference's
 leaf names and (d_in, d_out) orientation; the reference stacks each
 sub-layer position over super-blocks for ``lax.scan``, the port keeps one
 ``DecoderLayer`` per layer in a ``ModuleList`` and ``load_jax_params``
-unstacks. Each layer follows its ``SubLayerKind``: an attention or Mamba-2
-mixer, then a dense SwiGLU (fc-GELU-fc when ``cfg.mlp_gelu``), an MoE or
-no FF. Prefill attention, the SSD scan, the expert FF and every RMSNorm go
+unstacks (whisper's ``encoder.blocks`` likewise). Each layer follows its
+``SubLayerKind``: an attention or Mamba-2 mixer, whisper's cross attention
+over the encoder memory, then a dense SwiGLU (fc-GELU-fc when
+``cfg.mlp_gelu``), an MoE or no FF. Prefill attention, the encoder's and
+the cross attention, the SSD scan, the expert FF and every RMSNorm go
 through the CUDA kernels (their plain versions on CPU tensors); the expert
-FF does in decode too. Only ``prefill`` takes another kernel set, so that
-a check can hold it against the plain versions on the card; ``forward``
-and ``decode_step`` always use the kernels. HYBRID (jamba), encoder-decoder (whisper) and M-RoPE
-(qwen2-vl) models are not ported yet.
+FF does in decode too, while a decode step's single query (self and cross
+attention) takes plain einsums. Only ``prefill`` takes
+another kernel set, so that a check can hold it against the plain versions
+on the card; ``forward`` and ``decode_step`` always use the kernels.
+
+The stub frontends arrive as inputs, as in the reference: qwen2-vl's
+``patch_embeds`` (B, P, d) replace the first P token embeddings, and
+whisper's ``encoder_frames`` (B, S_enc, d) feed the encoder.
 
 Quirks kept from the reference: ``prefill`` materialises the caches in
 ``cache_dtype``, bfloat16 by default whatever ``cfg.cache_dtype`` says,
-and the ring buffer holds ``min(max_seq, window)`` positions.
+and the ring buffer holds ``min(max_seq, window)`` positions; decode
+positions continue from the prompt length (also under M-RoPE), and the
+learned position table is read ``% its size``.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from repro_torch.models.layers import (
     RMSNorm,
     dense_init,
     embed_init,
+    sinusoid_pos,
 )
 from repro_torch.models.mamba2 import (
     Mamba2,
@@ -49,8 +60,6 @@ from repro_torch.models.mamba2 import (
     mamba_forward,
 )
 from repro_torch.models.moe import MoE
-
-_FAMILIES = (Family.DENSE, Family.SSM, Family.MOE)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,19 +97,51 @@ def layer_kinds(cfg: ModelConfig) -> list[SubLayerKind]:
     return kinds
 
 
+def kernel_launches(cfg: ModelConfig, decode_steps: int = 0) -> dict:
+    """The kernel launches of one prefill of a prompt longer than one token
+    and ``decode_steps`` decode steps: RMSNorm for every norm (each layer's
+    norm1, the norm2 of a layer with an FF, a cross layer's third, a Mamba
+    layer's gated norm, the final; whisper's encoder's two a layer and its
+    final, at prefill), flash for every prefill attention (the encoder's
+    and the cross attention too), the SSD scan for each Mamba layer's
+    prefill, three grouped matmuls for each MoE layer in every pass."""
+    kinds = layer_kinds(cfg)
+    kinds = [kinds[i % len(kinds)] for i in range(cfg.n_layers)]
+    n_attn = sum(k.mixer == "attn" for k in kinds)
+    n_mamba = len(kinds) - n_attn
+    n_ff = sum(k.ff is not None for k in kinds)
+    n_moe = sum(k.ff == "moe" for k in kinds)
+    n_cross = sum(k.cross_attn for k in kinds)
+    n_enc = cfg.n_encoder_layers if cfg.is_encoder_decoder else 0
+    passes = 1 + decode_steps
+    return {"flash_attention": n_attn + n_cross + n_enc,
+            "ssd_scan": n_mamba,
+            "grouped_matmul": 3 * n_moe * passes,
+            "fused_rmsnorm": (len(kinds) + n_ff + n_cross + n_mamba + 1)
+            * passes + (2 * n_enc + 1 if n_enc else 0)}
+
+
 @dataclasses.dataclass
 class DecodeState:
     """One cache per layer (a KVCache for attention, an SSMState for
-    Mamba-2), and the count of tokens seen so far."""
+    Mamba-2), the count of tokens seen so far and each layer's
+    cross-attention K/V of the encoder memory (filled once by ``prefill``;
+    None for each layer of a decoder-only model)."""
 
     caches: list[Union[KVCache, SSMState]]
     step: int
+    cross_kv: list[Optional[tuple[torch.Tensor, torch.Tensor]]]
+
+
+def _ff(cfg: ModelConfig, **kw) -> nn.Module:
+    return (GeluMLP if cfg.mlp_gelu else MLP)(cfg.d_model, cfg.d_ff, **kw)
 
 
 class DecoderLayer(nn.Module):
     """One pre-norm layer of the given kind: ``norm1`` + an ``attn`` or
-    ``mamba`` mixer, then ``norm2`` + an ``ff`` (SwiGLU, or fc-GELU-fc when
-    ``cfg.mlp_gelu``) or ``moe`` FF, or no FF (the SSM family)."""
+    ``mamba`` mixer, then (whisper) ``norm_x`` + ``cross`` attention over
+    the encoder memory, then ``norm2`` + an ``ff`` (SwiGLU, or fc-GELU-fc
+    when ``cfg.mlp_gelu``) or ``moe`` FF, or no FF (the SSM family)."""
 
     def __init__(self, cfg: ModelConfig, kind: SubLayerKind, *, device,
                  dtype: torch.dtype, generator: torch.Generator | None):
@@ -112,13 +153,26 @@ class DecoderLayer(nn.Module):
             self.attn = attn_mod.Attention(cfg, **kw)
         else:
             self.mamba = Mamba2(cfg, **kw)
+        if kind.cross_attn:
+            self.norm_x = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+            self.cross = attn_mod.Attention(cfg, **kw)
         if kind.ff is not None:
             self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         if kind.ff == "dense":
-            mlp_cls = GeluMLP if cfg.mlp_gelu else MLP
-            self.ff = mlp_cls(cfg.d_model, cfg.d_ff, **kw)
+            self.ff = _ff(cfg, **kw)
         elif kind.ff == "moe":
             self.moe = MoE(cfg, **kw)
+        self.cfg = cfg
+
+    def cross_attend(self, x: torch.Tensor, mkv,
+                     kernels: KernelSet = KERNELS) -> torch.Tensor:
+        """x + cross attention of norm_x(x) over the encoder K/V ``mkv``
+        (x itself when the layer has none)."""
+        if not self.kind.cross_attn:
+            return x
+        h = self.norm_x(x, kernels)
+        return x + attn_mod.cross_attention(self.cross, self.cfg, h, mkv,
+                                            kernels)
 
     def feed_forward(self, x: torch.Tensor,
                      kernels: KernelSet = KERNELS) -> torch.Tensor:
@@ -144,21 +198,68 @@ def _kv_to_ring(k: torch.Tensor, buf: int) -> torch.Tensor:
     return k[:, src]
 
 
+class EncoderLayer(nn.Module):
+    """One pre-norm layer of whisper's encoder: ``norm1`` + bidirectional
+    self-attention ``attn`` (no rotation), ``norm2`` + ``ff``."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype: torch.dtype,
+                 generator: torch.Generator | None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        self.attn = attn_mod.Attention(cfg, **kw)
+        self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        self.ff = _ff(cfg, **kw)
+
+
+class Encoder(nn.Module):
+    """Whisper's encoder over the stub frontend's frames (B, S_enc, d): the
+    sinusoid table added to the frames, ``cfg.n_encoder_layers`` pre-norm
+    layers whose self-attention takes the flash kernel with
+    ``causal=False``, then ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype: torch.dtype,
+                 generator: torch.Generator | None):
+        super().__init__()
+        self.cfg = cfg
+        self.blocks = nn.ModuleList(
+            EncoderLayer(cfg, device=device, dtype=dtype, generator=generator)
+            for _ in range(cfg.n_encoder_layers))
+        self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
+        # built once: a row does not depend on the table's length
+        self.register_buffer("pos_table", sinusoid_pos(
+            cfg.encoder_seq, cfg.d_model, device=device), persistent=False)
+
+    def forward(self, frames: torch.Tensor,
+                kernels: KernelSet = KERNELS) -> torch.Tensor:
+        """frames (B, S, d) with S <= ``cfg.encoder_seq``."""
+        cfg = self.cfg
+        B, S, _ = frames.shape
+        x = frames + self.pos_table[:S].to(frames.dtype)
+        for layer in self.blocks:
+            h = layer.norm1(x, kernels)
+            q, k, v = attn_mod._project_qkv(layer.attn, cfg, h)
+            y = kernels.flash_attention(q, k, v, causal=False)
+            x = x + y.reshape(B, S, -1) @ layer.attn.wo
+            x = x + layer.ff(layer.norm2(x, kernels))
+        return self.final_norm(x, kernels)
+
+
 class Transformer(nn.Module):
-    """The decoder of the DENSE (``h2o-danube-1.8b`` and the other configs
-    without M-RoPE), SSM (``mamba2-780m``) and MOE (``qwen3-moe-30b-a3b``)
-    families. ``dtype`` is the weights' dtype (norm scales, the router and
-    the SSM's A/D/dt-bias stay float32)."""
+    """Every family of the zoo: DENSE (``h2o-danube-1.8b`` and the other
+    dense configs), SSM (``mamba2-780m``), MOE (``qwen3-moe-30b-a3b``),
+    HYBRID (``jamba-v0.1-52b``), AUDIO (``whisper-base``, with its
+    ``encoder`` and learned ``pos_embed``) and VLM (``qwen2-vl-7b``).
+    ``dtype`` is the weights' dtype (norm scales, the router and the SSM's
+    A/D/dt-bias stay float32). ``max_positions`` sizes the decoder's
+    position table (0: ``cfg.max_position_embeddings``), as
+    ``init_params(max_positions=)`` does."""
 
     def __init__(self, cfg: ModelConfig, *, device: str | torch.device = "cuda",
                  dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 max_positions: int = 0):
         super().__init__()
-        if (cfg.family not in _FAMILIES or cfg.is_encoder_decoder
-                or cfg.mrope):
-            raise NotImplementedError(
-                f"{cfg.name}: only the DENSE, SSM and MOE families are "
-                "ported so far")
         kinds = layer_kinds(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
@@ -170,6 +271,11 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device=dev)
         if not cfg.tie_embeddings:
             self.lm_head = dense_init(cfg.d_model, cfg.vocab_size, **kw)
+        if cfg.is_encoder_decoder:
+            self.encoder = Encoder(cfg, **kw)
+            self.pos_embed = embed_init(
+                max_positions or cfg.max_position_embeddings, cfg.d_model,
+                **kw)
 
     def _logits(self, x: torch.Tensor,
                 kernels: KernelSet = KERNELS) -> torch.Tensor:
@@ -177,40 +283,83 @@ class Transformer(nn.Module):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return x @ head
 
-    @staticmethod
-    def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor, start: int = 0,
+               patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """Token embeddings of positions start.., the patches spliced over
+        the first P, plus the learned position table read % its size."""
+        x = F.embedding(tokens, self.embed)
+        if patch_embeds is not None:
+            P = patch_embeds.shape[1]
+            x = torch.cat([patch_embeds.to(x.dtype), x[:, P:]], dim=1)
+        if self.cfg.is_encoder_decoder:
+            n_pos = self.pos_embed.shape[0]
+            pos = torch.arange(start, start + tokens.shape[1],
+                               device=tokens.device)
+            x = x + self.pos_embed[pos % n_pos]
+        return x
+
+    def _positions(self, tokens: torch.Tensor,
+                   positions: torch.Tensor | None) -> torch.Tensor:
+        """The given rotary positions, else arange (B, S), broadcast to
+        (3, B, S) under M-RoPE."""
+        if positions is not None:
+            return positions
         B, S = tokens.shape
-        return torch.arange(S, device=tokens.device).expand(B, S)
+        pos = torch.arange(S, device=tokens.device).expand(B, S)
+        return pos.expand(3, B, S) if self.cfg.mrope else pos
+
+    def _memory_kv(self, encoder_frames: torch.Tensor | None,
+                   kernels: KernelSet) -> list:
+        """Each layer's cross-attention K/V of the encoded frames (None
+        for each layer of a decoder-only model)."""
+        if not self.cfg.is_encoder_decoder:
+            return [None] * len(self.layers)
+        if encoder_frames is None:
+            raise ValueError(f"{self.cfg.name} needs encoder_frames")
+        memory = self.encoder(encoder_frames, kernels)
+        return [attn_mod.memory_kv(layer.cross, self.cfg, memory)
+                for layer in self.layers]
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, V)."""
-        positions = self._positions(tokens)
-        x = F.embedding(tokens, self.embed)
-        for layer in self.layers:
+    def forward(self, tokens: torch.Tensor, *,
+                positions: torch.Tensor | None = None,
+                patch_embeds: torch.Tensor | None = None,
+                encoder_frames: torch.Tensor | None = None) -> torch.Tensor:
+        """tokens (B, S) -> logits (B, S, V). ``positions``: rotary
+        positions (B, S), or (3, B, S) under M-RoPE (default arange);
+        ``patch_embeds`` (B, P, d); ``encoder_frames`` (B, S_enc, d)."""
+        positions = self._positions(tokens, positions)
+        x = self._embed(tokens, patch_embeds=patch_embeds)
+        cross_kv = self._memory_kv(encoder_frames, KERNELS)
+        for layer, mkv in zip(self.layers, cross_kv):
             h = layer.norm1(x)
             if layer.kind.mixer == "attn":
                 y, _, _ = attn_mod.attention(layer.attn, self.cfg, h, positions)
             else:
                 y, _ = mamba_forward(layer.mamba, self.cfg, h)
-            x = layer.feed_forward(x + y)
+            x = layer.feed_forward(layer.cross_attend(x + y, mkv))
         return self._logits(x)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, *, max_seq: int,
+                positions: torch.Tensor | None = None,
+                patch_embeds: torch.Tensor | None = None,
+                encoder_frames: torch.Tensor | None = None,
                 cache_dtype: torch.dtype = torch.bfloat16,
                 kernels: KernelSet = KERNELS
                 ) -> tuple[torch.Tensor, DecodeState]:
-        """Full-sequence forward that also materialises the decode caches.
-        Returns (logits (B, S, V), DecodeState ready for token S)."""
+        """Full-sequence forward that also materialises the decode caches
+        (and, for an encoder-decoder, the cross K/V). Returns (logits
+        (B, S, V), DecodeState ready for token S)."""
         cfg = self.cfg
         S = tokens.shape[1]
-        positions = self._positions(tokens)
+        positions = self._positions(tokens, positions)
         kv_buf = (max_seq if cfg.sliding_window is None
                   else min(max_seq, cfg.sliding_window))
-        x = F.embedding(tokens, self.embed)
+        x = self._embed(tokens, patch_embeds=patch_embeds)
+        cross_kv = self._memory_kv(encoder_frames, kernels)
         caches = []
-        for layer in self.layers:
+        for layer, mkv in zip(self.layers, cross_kv):
             h = layer.norm1(x, kernels)
             if layer.kind.mixer == "attn":
                 y, k, v = attn_mod.attention(layer.attn, cfg, h, positions,
@@ -221,18 +370,21 @@ class Transformer(nn.Module):
             else:
                 y, st = mamba_forward(layer.mamba, cfg, h, kernels=kernels)
                 caches.append(st)
-            x = layer.feed_forward(x + y, kernels)
-        return self._logits(x, kernels), DecodeState(caches=caches, step=S)
+            x = layer.cross_attend(x + y, mkv, kernels)
+            x = layer.feed_forward(x, kernels)
+        return self._logits(x, kernels), DecodeState(caches=caches, step=S,
+                                                     cross_kv=cross_kv)
 
     @torch.no_grad()
     def decode_step(self, state: DecodeState, tokens: torch.Tensor
                     ) -> tuple[torch.Tensor, DecodeState]:
         """One-token decode. tokens (B, 1) -> (logits (B, 1, V), new state).
         KV caches are updated in place (see ``decode_attention``); SSM
-        states are replaced."""
-        x = F.embedding(tokens, self.embed)
+        states are replaced; the cross K/V carry over."""
+        x = self._embed(tokens, start=state.step)
+        cross_kv = state.cross_kv
         caches = []
-        for layer, cache in zip(self.layers, state.caches):
+        for layer, cache, mkv in zip(self.layers, state.caches, cross_kv):
             h = layer.norm1(x)
             if layer.kind.mixer == "attn":
                 y, cache = attn_mod.decode_attention(layer.attn, self.cfg, h,
@@ -240,8 +392,9 @@ class Transformer(nn.Module):
             else:
                 y, cache = mamba_decode_step(layer.mamba, self.cfg, h, cache)
             caches.append(cache)
-            x = layer.feed_forward(x + y)
-        return self._logits(x), DecodeState(caches=caches, step=state.step + 1)
+            x = layer.feed_forward(layer.cross_attend(x + y, mkv))
+        return self._logits(x), DecodeState(caches=caches, step=state.step + 1,
+                                            cross_kv=cross_kv)
 
 
 def load_jax_params(model: Transformer, params: dict) -> Transformer:
@@ -250,8 +403,10 @@ def load_jax_params(model: Transformer, params: dict) -> Transformer:
 
     A name map plus unstacking: ``params["blocks"][j]`` holds sub-layer
     position j of every super-block stacked on a leading axis, so its entry
-    s is layer ``s * period + j``. Raises if a leaf has no parameter, a
-    parameter gets no leaf, or a shape differs.
+    s is layer ``s * period + j``; whisper's ``params["encoder"]["blocks"]``
+    stacks the encoder layers, entry s being ``encoder.blocks.s``. Raises
+    if a leaf has no parameter, a parameter gets no leaf, or a shape
+    differs.
     """
     period = block_period(model.cfg)
     assigned: set[str] = set()
@@ -278,13 +433,22 @@ def load_jax_params(model: Transformer, params: dict) -> Transformer:
             else:
                 yield f"{prefix}{key}", val
 
+    def unstack(tree: dict, name_of) -> None:
+        for name, stacked in leaves(tree):
+            for s in range(np.shape(stacked)[0]):
+                put(name_of(s, name), stacked[s])
+
+    encoder = dict(params.get("encoder", {}))
     for name, leaf in leaves({k: v for k, v in params.items()
-                              if k != "blocks"}):
+                              if k not in ("blocks", "encoder")}):
         put(name, leaf)
     for j, block in enumerate(params["blocks"]):
-        for name, stacked in leaves(block):
-            for s in range(np.shape(stacked)[0]):
-                put(f"layers.{s * period + j}.{name}", stacked[s])
+        unstack(block, lambda s, name: f"layers.{s * period + j}.{name}")
+    if "blocks" in encoder:
+        unstack(encoder.pop("blocks"),
+                lambda s, name: f"encoder.blocks.{s}.{name}")
+    for name, leaf in leaves(encoder, "encoder."):
+        put(name, leaf)
     missing = {n for n, _ in model.named_parameters()} - assigned
     if missing:
         raise ValueError(f"parameters without a reference leaf: {sorted(missing)}")

@@ -71,11 +71,14 @@ class ServeEngine:
         fits = np.cumsum(seq[:n_rows]) <= self.kv_token_budget
         return int(fits.sum())
 
-    def prefill_batch(self, tokens: torch.Tensor
+    def prefill_batch(self, tokens: torch.Tensor, **extras
                       ) -> tuple[torch.Tensor, DecodeState]:
-        """tokens (B, S) -> (last-position logits (B, V), decode state)."""
+        """tokens (B, S) -> (last-position logits (B, V), decode state).
+        ``extras``: the model's ``positions`` / ``patch_embeds`` /
+        ``encoder_frames``, moved to the engine's device."""
+        extras = {k: v.to(self.device) for k, v in extras.items()}
         logits, state = self.model.prefill(tokens.to(self.device),
-                                           max_seq=self.max_seq)
+                                           max_seq=self.max_seq, **extras)
         return logits[:, -1], state
 
     def serve_step(self, state: DecodeState, tokens: torch.Tensor
@@ -86,8 +89,10 @@ class ServeEngine:
 
     def generate(self, tokens: torch.Tensor, *, max_new_tokens: int,
                  generator: torch.Generator | None = None,
-                 temperature: float | None = None) -> torch.Tensor:
+                 temperature: float | None = None,
+                 **extras) -> torch.Tensor:
         """Greedy/temperature sampling. Returns (B, max_new_tokens) int64.
+        ``extras`` go to ``prefill_batch``.
 
         ``temperature=None`` defers to the ``greedy`` flag. Sampling draws
         from ``generator`` (on the engine's device); without one it
@@ -95,7 +100,7 @@ class ServeEngine:
         """
         if temperature is None:
             temperature = 0.0 if self.greedy else 1.0
-        logits, state = self.prefill_batch(tokens)
+        logits, state = self.prefill_batch(tokens, **extras)
         outs = []
         tok = self._sample(logits, generator, temperature)
         for i in range(max_new_tokens):

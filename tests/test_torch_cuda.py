@@ -417,6 +417,102 @@ def test_wrappers_launch_on_the_tensors_device(cuda, index):
                                **_tol("float32"))
 
 
+#: the model branches' new kernel shapes: (b, sq, sk, h, hkv, d, causal)
+BRANCH_FLASH = [(4, 1500, 1500, 8, 8, 64, False),  # whisper encoder
+                (4, 128, 1500, 8, 8, 64, False),  # whisper cross, prefill
+                (4, 1, 1500, 8, 8, 64, False),  # whisper cross, decode
+                (2, 100, 37, 4, 2, 16, False),  # Sk < Sq, ragged both
+                (2, 70, 130, 28, 4, 128, False),
+                (2, 130, 130, 28, 4, 128, True),  # GQA group 7
+                (4, 1280, 1280, 28, 4, 128, True)]  # qwen2-vl-7b prefill
+#: (b, s, h, p, n, chunk): jamba's Mamba layers (N 16, H 128) and a
+#: ragged, smaller case of the same N
+BRANCH_SSD = [(4, 512, 128, 64, 16, 128), (2, 200, 16, 64, 16, 128)]
+#: (e, c, d, f): jamba's experts at prefill (C 320) and decode (C 8)
+BRANCH_GMM = [(16, 320, 4096, 14336), (16, 320, 14336, 4096),
+              (16, 8, 4096, 14336), (16, 320, 64, 48)]
+
+
+@pytest.mark.cuda
+class TestCudaBranches:
+    """The shapes whisper-base, qwen2-vl-7b and jamba-v0.1-52b give the
+    kernels: non-causal flash with Sq != Sk and a ragged Sk (1500 is not a
+    multiple of the 64-key tiles), Sq = 1, a GQA group of 7, the SSD scan
+    at N 16 in both dtypes, and the grouped matmul at C 320, each against
+    its plain version."""
+
+    @pytest.mark.parametrize("name", list(TORCH_DTYPES))
+    @pytest.mark.parametrize("b,sq,sk,h,hkv,d,causal", BRANCH_FLASH)
+    def test_flash(self, cuda, name, b, sq, sk, h, hkv, d, causal):
+        rng = np.random.default_rng(sq * 31 + sk + h)
+        q = _rand(rng, (b, sq, h, d), name, cuda)
+        k, v = (_rand(rng, (b, sk, hkv, d), name, cuda) for _ in range(2))
+        before = t_ops.LAUNCHES["flash_attention"]
+        out = t_ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert t_ops.LAUNCHES["flash_attention"] == before + 1
+        assert out.shape == q.shape and out.dtype == q.dtype
+        want = t_ref.flash_attention_ref(q, k, v, causal=causal)
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **_tol(name))
+
+    @pytest.mark.parametrize("name", list(TORCH_DTYPES))
+    @pytest.mark.parametrize("b,s,h,p,n,chunk", BRANCH_SSD)
+    def test_ssd_state_16(self, cuda, name, b, s, h, p, n, chunk):
+        """Model-like decay: A = -(1..H), dt = softplus(.)."""
+        x, dt, _, Bm, Cm, D, _ = _ssd_args(np.random.default_rng(s + h), b,
+                                           s, h, p, n, name, cuda, False)
+        A = -torch.arange(1, h + 1, device=cuda, dtype=torch.float32)
+        _ssd_check((x, dt, A, Bm, Cm, D, None), chunk, name)
+
+    @pytest.mark.parametrize("e,c,d,f", BRANCH_GMM)
+    def test_gmm_capacity_320(self, cuda, e, c, d, f):
+        rng = np.random.default_rng(c + d)
+        x = _rand(rng, (e, c, d), "bfloat16", cuda)
+        w = (_rand(rng, (e, d, f), "bfloat16", cuda).float()
+             * d ** -0.5).to(torch.bfloat16)
+        before = t_ops.LAUNCHES["grouped_matmul"]
+        out = t_ops.grouped_matmul(x, w)
+        torch.cuda.synchronize()
+        assert t_ops.LAUNCHES["grouped_matmul"] == before + 1
+        want = t_ref.grouped_matmul_ref(x, w)
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   **_tol("bfloat16"))
+
+    @pytest.mark.parametrize("arch", ["whisper-base", "qwen2-vl-7b",
+                                      "jamba-v0.1-52b"])
+    def test_smoke_prefill_counts_and_plain(self, cuda, arch):
+        """The smoke config's prefill on the card launches each kernel of
+        its path and matches the same module through the plain versions."""
+        from repro_torch.configs import get_config
+        from repro_torch.models import Transformer, kernel_launches
+
+        cfg = get_config(arch, smoke=True)
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        model = Transformer(cfg, device=cuda, generator=gen)
+        toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                             generator=gen)
+        extras = {}
+        if cfg.is_encoder_decoder:
+            extras["encoder_frames"] = torch.randn(
+                (2, cfg.encoder_seq, cfg.d_model), device=cuda,
+                generator=gen) * 0.02
+        if cfg.mrope:
+            extras["positions"] = torch.randint(
+                0, 64, (3, 2, 40), device=cuda, generator=gen)
+        before = dict(t_ops.LAUNCHES)
+        got, _ = model.prefill(toks, max_seq=64, **extras)
+        torch.cuda.synchronize()
+        want_counts = kernel_launches(cfg)
+        assert {k: t_ops.LAUNCHES[k] - before[k] for k in want_counts} == \
+            want_counts
+        want, _ = model.prefill(toks, max_seq=64, kernels=t_ops.PLAIN,
+                                **extras)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+
+
 FLEET_N = 20_000
 
 

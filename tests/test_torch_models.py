@@ -267,12 +267,6 @@ def test_entry_point_without_device_raises_on_cpu_host(name):
         _entry_points()[name]()
 
 
-def test_other_families_not_ported():
-    for arch in ("jamba-v0.1-52b", "whisper-base", "qwen2-vl-7b"):
-        with pytest.raises(NotImplementedError):
-            Transformer(get_config(arch, smoke=True), device=CPU)
-
-
 NEW_ARCHS = ["mamba2-780m", "qwen3-moe-30b-a3b"]
 
 
@@ -472,3 +466,37 @@ def test_gelu_mlp_is_the_tanh_approximation():
     want = np.asarray(jax.nn.gelu(x @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"])
     np.testing.assert_allclose(_np(mlp(torch.from_numpy(x))), want,
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "mamba2-780m",
+                                  "qwen3-moe-30b-a3b", "whisper-base",
+                                  "qwen2-vl-7b", "jamba-v0.1-52b"])
+def test_kernel_launches_counts_each_wrapper_call(arch, monkeypatch):
+    """``kernel_launches`` (the exact counts the chip smoke asserts) equals
+    the calls a served batch makes to each kernel wrapper, counted on the
+    CPU through the plain versions the wrappers take there."""
+    from repro_torch.kernels import ref as t_ref
+    from repro_torch.models import kernel_launches
+
+    counts = dict.fromkeys(("flash_attention", "fused_rmsnorm", "ssd_scan",
+                            "grouped_matmul"), 0)
+    for fn, key in (("flash_attention_ref", "flash_attention"),
+                    ("rmsnorm_ref", "fused_rmsnorm"),
+                    ("ssd_ref", "ssd_scan"),
+                    ("grouped_matmul_ref", "grouped_matmul")):
+        def counted(*args, _fn=getattr(t_ref, fn), _key=key, **kw):
+            counts[_key] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(t_ref, fn, counted)
+    cfg = get_config(arch, smoke=True)
+    model = Transformer(cfg, device=CPU,
+                        generator=torch.Generator().manual_seed(0))
+    extras = {}
+    if cfg.is_encoder_decoder:
+        extras["encoder_frames"] = torch.as_tensor(np.random.default_rng(
+            1).normal(0, 0.02, (2, cfg.encoder_seq, cfg.d_model)),
+            dtype=torch.float32)
+    engine = ServeEngine(cfg, model, max_seq=40, device=CPU)
+    engine.generate(torch.as_tensor(_tokens((2, 20), vocab=cfg.vocab_size)),
+                    max_new_tokens=6, **extras)
+    assert counts == kernel_launches(cfg, decode_steps=5)
