@@ -62,7 +62,21 @@ Phases (any failure ends the script with a non-zero exit):
    first hourly window of ``xregion`` that admitted at least 4 requests,
    and 4 of them are served through the full-width danube f32 engine
    (prompt 512, 16 new tokens, counters exact: 24 flash, 49 x 16 RMSNorm).
-6. ``[serve]``: the serving loop on the card, rebuilt from the port's own
+6. ``[shard]``: sharded routing over ``torch.distributed``
+   (``repro_torch.serve.distributed``), a FileStore rendezvous. World 1
+   over NCCL in this process: every ``FLEET`` configuration at its size
+   through ``FleetRouter(mesh=data_mesh(1))``, its target, feasibility,
+   executing region and hour, shed mask, counts, carbon and routed gCO2
+   bit-identical to the unsharded card route's (warm wall, req/s); the
+   ``[serve]`` queue run at 1M through the meshed router, equal to the
+   meshless run; the sharded ``xregion`` route's edge-DC admissions
+   handed to the danube engine as in ``[fleet]`` (24 flash, 49 x 16
+   RMSNorm). Then worlds 2 and 4 as spawned ranks sharing the card over
+   gloo (NCCL takes one rank a card): ``xregion``, ``temporal_joint`` and
+   ``mesoscale`` at full size, every rank the same result, decisions,
+   carbon and routed gCO2 bit-identical to world 1 (sha256 of the
+   arrays); the warm wall of the slowest rank, not a scaling figure.
+7. ``[serve]``: the serving loop on the card, rebuilt from the port's own
    modules at the sizes of the repo's results (``benchmarks/
    policy_throughput.py``'s forecast, queue and refit rows), routing
    ``h2o-danube-1.8b`` requests. ``forecast``: a 1M ``forecast_scenario``
@@ -85,7 +99,7 @@ Phases (any failure ends the script with a non-zero exit):
    edge-DC tier picks the first serve step of the queue run that admitted
    4 requests, and they are served through the full-width danube f32 engine
    (counters exact: 24 flash, 49 x 16 RMSNorm).
-7. ``[scenarios]``: the scenario matrix (``repro_torch.serve.scenarios``)
+8. ``[scenarios]``: the scenario matrix (``repro_torch.serve.scenarios``)
    on the card at 1M requests a scenario (the flash crowd draws ~2.36M):
    every (scenario, policy) cell of the seven scenarios x three policies,
    one line each (total, routed and latency-optimal gCO2, shed / spill /
@@ -95,19 +109,19 @@ Phases (any failure ends the script with a non-zero exit):
    gates of ``repro_torch.launch.scenario_matrix`` (curtailment chase and
    spike-aware provisioning at 1M, watt caps at 200,000 x 3 seeds x 2
    policies).
-8. ``[provision]``: the README's mesoscale provisioning table (20,000
+9. ``[provision]``: the README's mesoscale provisioning table (20,000
    requests, ``from_sites(128, 8)``, paper fleet) exactly and card == CPU;
    the four plans of a 1M ``multi_region_stream`` on the same grid;
    ``serve_stream(plan=)`` with the greedy and the static plan at 1M under
    unit-capped placement (shed, routed and standing gCO2, warm wall; gate:
    provisioned standing + routed < static's); card == CPU on a 50,000-
    request stream with its own plan.
-9. ``[tour]``: ``repro_torch.launch.tour`` (the ten acts of the serving
+10. ``[tour]``: ``repro_torch.launch.tour`` (the ten acts of the serving
    tour) at its default 1M requests with ``--learned`` and the full
    ``h2o-danube-1.8b`` engine in f32, the counters set to 0 just before
    and read just after: 24 flash and 49 x 8 RMSNorm (one prefill, eight
    forward passes), no SSD scan, no grouped matmul.
-10. ``[branches]``: the model branches at full width, batch 4, 16 new
+11. ``[branches]``: the model branches at full width, batch 4, 16 new
    tokens, the counters set to 0 just before each run and read just
    after, each count exact (``kernel_launches``): ``whisper-base`` f32
    through the launcher (prompt 128, stub encoder frames (4, 1500, 512);
@@ -309,6 +323,118 @@ FLEET_CHECK_N = 50_000  # card against CPU on each stream's first requests
 FLEET_RTOL = 1e-5
 
 
+def fleet_stream(kind: str, n: int, n_regions: int):
+    """The numpy stream of a ``FLEET`` configuration."""
+    from repro_torch.serve.streams import (deferrable_stream,
+                                           multi_region_stream)
+
+    if kind == "deferrable":
+        return deferrable_stream(n, n_regions)
+    return multi_region_stream(n, n_regions, seed=1 if n_regions > 4 else 0)
+
+
+def fleet_router(spec, n: int, device, mesh=None):
+    """The ``FleetRouter`` of a ``FLEET`` configuration at ``n`` requests on
+    ``device``, sharded over ``mesh`` when given."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.carbon_intensity import CarbonGrid
+    from repro_torch.core.infrastructure import pack_infra, tpu_fleet
+    from repro_torch.serve import (FleetRouter, OraclePolicy,
+                                   PlacementPolicy, TemporalPolicy)
+
+    _, _, _, n_regions, grid_kind, pol, frac = spec
+    if grid_kind == "sites":
+        grid = CarbonGrid.from_sites(n_regions, 8, seed=0, device=device)
+    elif grid_kind == "fully_connected":
+        grid = CarbonGrid.fully_connected(latency_penalty=1.05, device=device)
+    else:
+        grid = CarbonGrid.from_regions(device=device)
+    infra = pack_infra(tpu_fleet(), device=device)
+    caps = np.full((n_regions, 3), np.inf)
+    if frac is not None:
+        caps[:, 1] = caps[:, 2] = max(1.0, frac * n / (n_regions * 24))
+    policy = {"oracle": lambda: OraclePolicy(infra),
+              "placement": lambda: PlacementPolicy(OraclePolicy(infra),
+                                                   caps),
+              "temporal": lambda: TemporalPolicy(OraclePolicy(infra), caps,
+                                                 max_defer_h=12),
+              }[pol]()
+    return FleetRouter(get_config(DANUBE), grid=grid, policy=policy,
+                       device=device, mesh=mesh)
+
+
+def fleet_decisions(res, state, t_hours, horizon) -> dict:
+    """A route's decisions as host arrays: target, executing region and
+    hour, shed mask, counts."""
+    import numpy as np
+
+    host = lambda x: x.cpu().numpy()
+    hour = np.floor(t_hours).astype(np.int64) % horizon
+    ex_h = getattr(state, "exec_hour", None)
+    shed = getattr(state, "shed", None)
+    return {"target": host(res.target),
+            "exec_region": host(res.exec_region),
+            "exec_hour": hour if ex_h is None else host(ex_h),
+            "shed": (np.zeros(len(t_hours), bool) if shed is None
+                     else host(shed)),
+            "counts": host(res.counts)}
+
+
+def fleet_handoff(torch, dev, results, seed: int, fr, res, t_hours,
+                  tag: str, path: str) -> None:
+    """``admit_windows`` for an engine pinned to the edge-DC tier picks the
+    first hourly window of the route ``res`` that admitted at least 4
+    requests, and 4 of them are served through the full-width danube f32
+    engine, the counters set to 0 just before and read just after (24
+    flash, 49 x 16 RMSNorm). ``path`` names the run in the kernels line."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.constants import Target
+    from repro_torch.kernels import ops
+    from repro_torch.models import Transformer
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config(DANUBE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = Transformer(cfg, device=dev, dtype=torch.float32, generator=gen)
+    engine = ServeEngine(cfg, model, max_seq=PROMPT + NEW + 8,
+                         tier=int(Target.EDGE_DC), device=dev)
+    windows = fr.admit_windows(res, t_hours, engine)
+    hour = next((h for h, idx in enumerate(windows) if len(idx) >= 4), None)
+    check(hour is not None, f"{tag}: no hourly window admitted 4 edge-DC "
+          f"requests")
+    picked = windows[hour][:4]
+    tgt = res.target.cpu().numpy()[picked]
+    check(bool((tgt == int(Target.EDGE_DC)).all()),
+          f"{tag}: admitted requests are not routed to the edge DC")
+    prompt = torch.randint(0, cfg.vocab_size, (4, PROMPT), generator=gen,
+                           device=dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    tokens = engine.generate(prompt, max_new_tokens=NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    want = dict({k: 0 for k in launches}, flash_attention=cfg.n_layers,
+                fused_rmsnorm=(2 * cfg.n_layers + 1) * NEW)
+    check(launches == want, f"{tag} handoff: launch counts {launches}, "
+          f"expected {want}")
+    check(tuple(tokens.shape) == (4, NEW) and bool(
+        ((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+        f"{tag} handoff: tokens")
+    for name, r in results.items():
+        r["launches_by_path"][path] = launches[name]
+    print(f"[{tag}] handoff: window {hour} admitted {len(windows[hour])} "
+          f"edge-DC requests of {path.split(' -> ')[0]}; served requests "
+          f"{picked.tolist()} (exec regions "
+          f"{res.exec_region.cpu().numpy()[picked].tolist()}) through "
+          f"{DANUBE} f32, prompt ({len(picked)}, {PROMPT}), {NEW} new tokens "
+          f"in {wall:.3f} s; launches {launches}")
+    del model, engine
+    torch.cuda.empty_cache()
+
+
 def fleet_phase(torch, dev, results, profile: bool, seed: int) -> None:
     """Phase 5: route the configurations of ``FLEET`` on the card, hold
     their decisions against the CPU, and hand ``xregion``'s admitted
@@ -317,75 +443,19 @@ def fleet_phase(torch, dev, results, profile: bool, seed: int) -> None:
 
     import numpy as np
 
-    from repro_torch.configs import get_config
-    from repro_torch.core.carbon_intensity import CarbonGrid
-    from repro_torch.core.constants import Target
-    from repro_torch.core.infrastructure import pack_infra, tpu_fleet
-    from repro_torch.kernels import ops
-    from repro_torch.models import Transformer
-    from repro_torch.serve import (
-        FleetRouter,
-        OraclePolicy,
-        PlacementPolicy,
-        ServeEngine,
-        TemporalPolicy,
-    )
-    from repro_torch.serve.streams import deferrable_stream, multi_region_stream
-
-    cfg = get_config(DANUBE)
-
-    def stream(kind, n, n_regions):
-        if kind == "deferrable":
-            return deferrable_stream(n, n_regions)
-        return multi_region_stream(n, n_regions,
-                                   seed=1 if n_regions > 4 else 0)
-
-    def router(spec, n, device):
-        _, _, _, n_regions, grid_kind, pol, frac = spec
-        if grid_kind == "sites":
-            grid = CarbonGrid.from_sites(n_regions, 8, seed=0, device=device)
-        elif grid_kind == "fully_connected":
-            grid = CarbonGrid.fully_connected(latency_penalty=1.05,
-                                              device=device)
-        else:
-            grid = CarbonGrid.from_regions(device=device)
-        infra = pack_infra(tpu_fleet(), device=device)
-        caps = np.full((n_regions, 3), np.inf)
-        if frac is not None:
-            caps[:, 1] = caps[:, 2] = max(1.0, frac * n / (n_regions * 24))
-        policy = {"oracle": lambda: OraclePolicy(infra),
-                  "placement": lambda: PlacementPolicy(OraclePolicy(infra),
-                                                       caps),
-                  "temporal": lambda: TemporalPolicy(OraclePolicy(infra),
-                                                     caps, max_defer_h=12),
-                  }[pol]()
-        return FleetRouter(cfg, grid=grid, policy=policy, device=device)
-
     def head(batch, region, t_hours, n):
         cut = {f.name: (None if getattr(batch, f.name) is None
                         else getattr(batch, f.name)[:n])
                for f in dataclasses.fields(batch)}
         return dataclasses.replace(batch, **cut), region[:n], t_hours[:n]
 
-    def decisions(res, state, t_hours, horizon):
-        host = lambda x: x.cpu().numpy()
-        hour = np.floor(t_hours).astype(np.int64) % horizon
-        ex_h = getattr(state, "exec_hour", None)
-        shed = getattr(state, "shed", None)
-        return {"target": host(res.target),
-                "exec_region": host(res.exec_region),
-                "exec_hour": hour if ex_h is None else host(ex_h),
-                "shed": (np.zeros(len(t_hours), bool) if shed is None
-                         else host(shed)),
-                "counts": host(res.counts)}
-
     xregion = None
     for spec in FLEET:
         name, kind, n, n_regions = spec[:4]
         t0 = time.perf_counter()
-        batch, region, t_hours = stream(kind, n, n_regions)
+        batch, region, t_hours = fleet_stream(kind, n, n_regions)
         t_stream = time.perf_counter() - t0
-        fr = router(spec, n, dev)
+        fr = fleet_router(spec, n, dev)
         fr.route_stream(batch, region, t_hours)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -419,10 +489,10 @@ def fleet_phase(torch, dev, results, profile: bool, seed: int) -> None:
         sub = head(batch, region, t_hours, FLEET_CHECK_N)
         got = {}
         for d in (dev, "cpu"):
-            frd = router(spec, FLEET_CHECK_N, d)
+            frd = fleet_router(spec, FLEET_CHECK_N, d)
             r, st = frd.route_stream_with_state(*sub)
-            got[str(d)] = (decisions(r, st, sub[2], frd.grid.horizon_h),
-                      r.carbon_g.cpu().numpy(), float(r.routed_carbon_g))
+            got[str(d)] = (fleet_decisions(r, st, sub[2], frd.grid.horizon_h),
+                           r.carbon_g.cpu().numpy(), float(r.routed_carbon_g))
         card, cpu = got[str(dev)], got["cpu"]
         for k, v in cpu[0].items():
             bad = int((card[0][k] != v).sum())
@@ -440,43 +510,252 @@ def fleet_phase(torch, dev, results, profile: bool, seed: int) -> None:
         torch.cuda.empty_cache()
 
     # --- the handoff: decide -> execute ---------------------------------------
-    fr, res, t_hours = xregion
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    model = Transformer(cfg, device=dev, dtype=torch.float32, generator=gen)
-    engine = ServeEngine(cfg, model, max_seq=PROMPT + NEW + 8,
-                         tier=int(Target.EDGE_DC), device=dev)
-    windows = fr.admit_windows(res, t_hours, engine)
-    hour = next((h for h, idx in enumerate(windows) if len(idx) >= 4), None)
-    check(hour is not None, "no hourly window admitted 4 edge-DC requests")
-    picked = windows[hour][:4]
-    tgt = res.target.cpu().numpy()[picked]
-    check(bool((tgt == int(Target.EDGE_DC)).all()),
-          "admitted requests are not routed to the edge DC")
-    prompt = torch.randint(0, cfg.vocab_size, (4, PROMPT), generator=gen,
-                           device=dev)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    tokens = engine.generate(prompt, max_new_tokens=NEW)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
-    want = dict({k: 0 for k in launches}, flash_attention=cfg.n_layers,
-                fused_rmsnorm=(2 * cfg.n_layers + 1) * NEW)
-    check(launches == want, f"fleet handoff: launch counts {launches}, "
-          f"expected {want}")
-    check(tuple(tokens.shape) == (4, NEW) and bool(
-        ((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
-        "fleet handoff: tokens")
-    for name, r in results.items():
-        r["launches_by_path"][f"xregion -> {DANUBE}"] = launches[name]
-    print(f"[fleet] handoff: window {hour} admitted {len(windows[hour])} "
-          f"edge-DC requests of xregion; served requests "
-          f"{picked.tolist()} (exec regions "
-          f"{res.exec_region.cpu().numpy()[picked].tolist()}) through "
-          f"{DANUBE} f32, prompt ({len(picked)}, {PROMPT}), {NEW} new tokens "
-          f"in {wall:.3f} s; launches {launches}")
-    del model, engine
-    torch.cuda.empty_cache()
+    fleet_handoff(torch, dev, results, seed, *xregion, "fleet",
+                  f"xregion -> {DANUBE}")
+
+
+# The sharded phase: worlds 2 and 4 route these FLEET configurations as
+# spawned ranks sharing the one card over gloo; world 1 (NCCL, in this
+# process) routes every FLEET configuration.
+SHARD_WORLDS = (2, 4)
+SHARD_SPAWNED = ("xregion", "temporal_joint", "mesoscale")
+SHARD_TIMEOUT_S = 600
+
+
+def shard_digest(np, res, state, t_hours, horizon) -> dict:
+    """sha256 of each decision array, the per-request carbon and the
+    routed gCO2 (float32 bytes) of a route: equal digests are equal bits."""
+    import hashlib
+
+    arrays = fleet_decisions(res, state, t_hours, horizon)
+    arrays["feasible"] = res.feasible.cpu().numpy()
+    arrays["carbon_g"] = res.carbon_g.cpu().numpy()
+    arrays["routed_carbon_g"] = res.routed_carbon_g.cpu().numpy()
+    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in arrays.items()}
+
+
+def shard_rank(rank: int, world: int, store: str, out: str,
+               device: str) -> None:
+    """One spawned rank of a gloo world: route ``SHARD_SPAWNED`` at full
+    size with the whole stream under ``data_mesh(world)``, all ranks'
+    tensors on ``device``, and write each route's digests, warm wall and
+    counts to ``<out>/rank<rank>.json``."""
+    import datetime
+    import os
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.serve import data_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":  # every rank on the same card
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(
+                                seconds=SHARD_TIMEOUT_S))
+    try:
+        mesh = data_mesh(world, device=dev.type)
+        record = {}
+        for spec in FLEET:
+            name, kind, n, n_regions = spec[:4]
+            if name not in SHARD_SPAWNED:
+                continue
+            batch, region, t_hours = fleet_stream(kind, n, n_regions)
+            fr = fleet_router(spec, n, dev, mesh=mesh)
+            fr.route_stream(batch, region, t_hours)  # warm-up
+            sync(torch, dev)
+            dist.barrier()
+            t0 = time.perf_counter()
+            res, state = fr.route_stream_with_state(batch, region, t_hours)
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+            record[name] = dict(
+                digest=shard_digest(np, res, state, t_hours,
+                                    fr.grid.horizon_h),
+                wall=wall, routed=float(res.routed_carbon_g),
+                shed=int(res.shed_count), spilled=int(res.spilled_count),
+                deferred=int(res.deferred_count))
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(record, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def spawn_world(world: int, tmp: str, device: str) -> list[dict]:
+    """Run ``world`` ranks of ``shard_rank`` (start method spawn, a
+    FileStore under ``tmp``) and return their records; a rank that fails or
+    outlives ``SHARD_TIMEOUT_S`` fails the phase, and none is left
+    running."""
+    import os
+
+    import torch.multiprocessing as mp
+
+    out = os.path.join(tmp, f"world{world}")
+    os.makedirs(out)
+    ctx = mp.start_processes(shard_rank, args=(world, os.path.join(
+        out, "store"), out, device), nprocs=world, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.monotonic() < deadline, f"shard world {world}: ranks "
+                  f"still running after {SHARD_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    records = []
+    for rank in range(world):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            records.append(json.load(f))
+    return records
+
+
+def shard_phase(torch, dev, results, seed: int) -> None:
+    """Phase 6, ``[shard]``: sharded routing over ``torch.distributed``.
+    World 1 over NCCL in this process (a FileStore, no TCP port): every
+    ``FLEET`` configuration through ``FleetRouter(mesh=data_mesh(1))``
+    against the unsharded card route of the same stream, the ``[serve]``
+    queue run through the meshed router against the meshless one, and the
+    sharded ``xregion`` route's edge-DC admissions handed to the danube
+    engine.
+    Then worlds 2 and 4 as spawned ranks sharing the card over gloo:
+    ``SHARD_SPAWNED`` at full size, every rank the same result, decisions
+    and routed gCO2 bit-identical to world 1."""
+    import datetime
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.serve import data_mesh
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":  # the mesh's communicator binds the current card
+        torch.cuda.set_device(dev.index or 0)
+    tmp_dir = tempfile.TemporaryDirectory(prefix="shard-")
+    tmp = tmp_dir.name
+    dist.init_process_group(backend, init_method=f"file://{tmp}/world1",
+                            rank=0, world_size=1, timeout=datetime.timedelta(
+                                seconds=SHARD_TIMEOUT_S))
+    try:
+        mesh = data_mesh(1, device=dev.type)
+        digests, xregion = {}, None
+        for spec in FLEET:
+            name, kind, n, n_regions = spec[:4]
+            batch, region, t_hours = fleet_stream(kind, n, n_regions)
+            plain = fleet_router(spec, n, dev)
+            ref, ref_state = plain.route_stream_with_state(batch, region,
+                                                           t_hours)
+            horizon = plain.grid.horizon_h
+            want = fleet_decisions(ref, ref_state, t_hours, horizon)
+            want["feasible"] = ref.feasible.cpu().numpy()
+            want["carbon_g"] = ref.carbon_g.cpu().numpy()
+            want["routed_carbon_g"] = ref.routed_carbon_g.cpu().numpy()
+            routed_ref = float(ref.routed_carbon_g)
+            del plain, ref, ref_state
+            fr = fleet_router(spec, n, dev, mesh=mesh)
+            fr.route_stream(batch, region, t_hours)  # warm-up
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            res, state = fr.route_stream_with_state(batch, region, t_hours)
+            sync(torch, dev)
+            wall = time.perf_counter() - t0
+            got = fleet_decisions(res, state, t_hours, horizon)
+            got["feasible"] = res.feasible.cpu().numpy()
+            got["carbon_g"] = res.carbon_g.cpu().numpy()
+            got["routed_carbon_g"] = res.routed_carbon_g.cpu().numpy()
+            for k, v in want.items():  # the same bits, carbon included
+                check(got[k].dtype == v.dtype
+                      and got[k].tobytes() == v.tobytes(),
+                      f"shard {name}: {k} differs world 1 vs the unsharded "
+                      f"route ({int((got[k] != v).sum())} entries)")
+            routed = float(res.routed_carbon_g)
+            print(f"[shard] world 1 ({backend}) {name}: {n} requests, routed "
+                  f"{routed:.9g} g (unsharded {routed_ref:.9g} g), shed "
+                  f"{int(res.shed_count)}, spilled {int(res.spilled_count)}, "
+                  f"deferred {int(res.deferred_count)}; target, feasible, "
+                  f"exec region/hour, shed, counts, carbon and routed gCO2 "
+                  f"bit-identical to the unsharded route; warm {wall:.4f} s "
+                  f"({n / wall:.0f} req/s)")
+            if name in SHARD_SPAWNED:
+                digests[name] = shard_digest(np, res, state, t_hours,
+                                             horizon)
+            if name == "xregion":
+                xregion = (fr, res, t_hours)
+            del res, state
+            torch.cuda.empty_cache()
+
+        # --- the [serve] queue run through the meshed router ---------------
+        want_q = queue_run(SERVE_N, dev)[1]()
+        run_q = queue_run(SERVE_N, dev, mesh=mesh)[1]
+        t0 = time.perf_counter()
+        got_q = run_q()
+        sync(torch, dev)
+        wall = time.perf_counter() - t0
+        for f in SERVE_FIELDS + ("step", "defer_hours"):
+            bad = int((getattr(got_q, f) != getattr(want_q, f)).sum())
+            check(bad == 0, f"shard queue: {f} differs meshed vs meshless "
+                  f"({bad} rows)")
+        check(got_q.carbon_g.tobytes() == want_q.carbon_g.tobytes()
+              and got_q.routed_carbon_g == want_q.routed_carbon_g,
+              "shard queue: carbon differs meshed vs meshless")
+        check([s.drafted for s in got_q.steps]
+              == [s.drafted for s in want_q.steps],
+              "shard queue: the step ledgers differ meshed vs meshless")
+        print(f"[shard] world 1 ({backend}) queue: {SERVE_N} requests through "
+              f"serve_stream with the meshed router: routed "
+              f"{got_q.routed_carbon_g:.9g} g (meshless "
+              f"{want_q.routed_carbon_g:.9g} g), shed {got_q.shed_count}, "
+              f"steps {len(got_q.steps)}; decisions, carbon and routed gCO2 "
+              f"identical to the meshless run; {wall:.4f} s")
+        del want_q, got_q
+
+        # --- the sharded xregion route -> danube -----------------------------
+        fleet_handoff(torch, dev, results, seed, *xregion, "shard",
+                      f"sharded xregion -> {DANUBE}")
+        del xregion
+    finally:
+        dist.destroy_process_group()
+
+    # --- worlds 2 and 4: spawned ranks sharing the card over gloo ----------
+    for world in SHARD_WORLDS:
+        t0 = time.perf_counter()
+        records = spawn_world(world, tmp, str(dev))
+        t_world = time.perf_counter() - t0
+        for name in SHARD_SPAWNED:
+            recs = [r[name] for r in records]
+            for rank, r in enumerate(recs):
+                check(r["digest"] == recs[0]["digest"],
+                      f"shard world {world} {name}: rank {rank} returned "
+                      f"another result than rank 0")
+            bad = [k for k, v in digests[name].items()
+                   if recs[0]["digest"][k] != v]
+            check(not bad, f"shard world {world} {name}: {bad} differ from "
+                  f"world 1")
+            wall = max(r["wall"] for r in recs)
+            print(f"[shard] world {world} (gloo, {world} ranks share one "
+                  f"card, so the wall is not a scaling figure) {name}: "
+                  f"routed {recs[0]['routed']:.9g} g, shed {recs[0]['shed']}"
+                  f", spilled {recs[0]['spilled']}, deferred "
+                  f"{recs[0]['deferred']}; every rank the same result; "
+                  f"decisions, carbon and routed gCO2 bit-identical to world "
+                  f"1; warm {wall:.4f} s (slowest rank)")
+        print(f"[shard] world {world}: spawned, routed and joined in "
+              f"{t_world:.1f} s")
+    tmp_dir.cleanup()
 
 
 # The serving loop's configurations (benchmarks/policy_throughput.py's
@@ -491,8 +770,41 @@ SERVE_RTOL = 1e-5
 SERVE_FIELDS = ("target", "exec_region", "exec_hour", "shed")
 
 
+def queue_run(n: int, device, mesh=None):
+    """The ``[serve]`` queue row: ``(router, run)``, where ``run()`` serves
+    ``n`` ``diurnal_stream`` requests through ``serve_stream`` on the fully
+    connected grid, placement with unit caps and a fresh pool of 2 workers
+    per (region, DC tier) at 30,000 slots each; the router is sharded over
+    ``mesh`` when given."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.carbon_intensity import DEFAULT_REGIONS, CarbonGrid
+    from repro_torch.core.infrastructure import pack_infra, tpu_fleet
+    from repro_torch.serve import (FleetRouter, OraclePolicy,
+                                   PlacementPolicy, WorkerPool, serve_stream)
+    from repro_torch.serve.streams import diurnal_stream
+
+    R = len(DEFAULT_REGIONS)
+    batch, region, t_hours = diurnal_stream(n, R)
+    fr = FleetRouter(get_config(DANUBE), device=device, mesh=mesh,
+                     grid=CarbonGrid.fully_connected(latency_penalty=1.05,
+                                                     device=device),
+                     policy=PlacementPolicy(OraclePolicy(
+                         pack_infra(tpu_fleet(), device=device)),
+                         np.ones((R, 3))))
+
+    def run():
+        pool = WorkerPool(R, slots_per_worker=30_000.0, launch_delay_steps=0)
+        for r in range(R):
+            for tier in (1, 2):
+                pool.launch(r, tier, n=2)
+        return serve_stream(fr, batch, region, t_hours, pool=pool)
+    return fr, run
+
+
 def serve_phase(torch, dev, results, profile: bool, seed: int) -> None:
-    """Phase 6: the serving loop on the card, rebuilt from the port's own
+    """Phase 7: the serving loop on the card, rebuilt from the port's own
     modules at the sizes of the repo's own results, held against the CPU on
     whole streams, then one queue step's edge-DC admissions served by the
     danube engine."""
@@ -513,10 +825,9 @@ def serve_phase(torch, dev, results, profile: bool, seed: int) -> None:
     from repro_torch.serve import (EmissionsLedger, FleetRouter,
                                    LearnedPolicy, OnlineRefitter,
                                    OraclePolicy, PlacementPolicy,
-                                   ServeEngine, TemporalPolicy, WorkerPool,
-                                   serve_stream)
+                                   ServeEngine, TemporalPolicy, serve_stream)
     from repro_torch.serve.streams import (deferrable_stream_multiday,
-                                           diurnal_stream, forecast_scenario)
+                                           forecast_scenario)
 
     cfg = get_config(DANUBE)
     cpu = torch.device("cpu")
@@ -593,24 +904,7 @@ def serve_phase(torch, dev, results, profile: bool, seed: int) -> None:
     torch.cuda.empty_cache()
 
     # --- queue: the continuous-batching loop through live worker slots -----
-    def queue(n, d):
-        batch, region, t_hours = diurnal_stream(n, R)
-        fr = FleetRouter(cfg, device=d,
-                         grid=CarbonGrid.fully_connected(
-                             latency_penalty=1.05, device=d),
-                         policy=PlacementPolicy(OraclePolicy(infra(d)),
-                                                np.ones((R, 3))))
-
-        def run():
-            pool = WorkerPool(R, slots_per_worker=30_000.0,
-                              launch_delay_steps=0)
-            for r in range(R):
-                for tier in (1, 2):
-                    pool.launch(r, tier, n=2)
-            return serve_stream(fr, batch, region, t_hours, pool=pool)
-        return fr, run
-
-    fr_q, run_q = queue(SERVE_N, dev)
+    fr_q, run_q = queue_run(SERVE_N, dev)
     res_q, wall = warm(run_q)
     check(np.isfinite(res_q.routed_carbon_g) and res_q.routed_carbon_g > 0,
           "queue: non-finite or zero routed carbon")
@@ -624,8 +918,8 @@ def serve_phase(torch, dev, results, profile: bool, seed: int) -> None:
           f"({SERVE_N / wall:.0f} req/s)")
     if profile:
         device_profile(torch, run_q, "serve queue")
-    same("queue", queue(SERVE_CHECK_N, dev)[1](),
-         queue(SERVE_CHECK_N, cpu)[1](), SERVE_FIELDS + ("step",))
+    same("queue", queue_run(SERVE_CHECK_N, dev)[1](),
+         queue_run(SERVE_CHECK_N, cpu)[1](), SERVE_FIELDS + ("step",))
 
     # --- refit: static learned -> online refit -> oracle -------------------
     t0 = time.perf_counter()
@@ -762,7 +1056,7 @@ PROV_CHECK_N = 50_000
 
 
 def scenarios_phase(torch, dev, profile: bool) -> None:
-    """Phase 7: the 21 (scenario, policy) cells of the scenario matrix on
+    """Phase 8: the 21 (scenario, policy) cells of the scenario matrix on
     the card at SCEN_N requests a scenario (warm wall after one warm-up
     route), card == CPU on every cell at SCEN_CHECK_N, then the three
     gates."""
@@ -864,7 +1158,7 @@ def scenarios_phase(torch, dev, profile: bool) -> None:
 
 
 def provision_phase(torch, dev, profile: bool) -> None:
-    """Phase 8: provisioning on the 128-site sparse grid: the README's 20k
+    """Phase 9: provisioning on the 128-site sparse grid: the README's 20k
     pin exactly (card == CPU), the four plans of a PROV_N stream and the
     plan-driven serve loop at PROV_N (warm wall after one warm-up run),
     then card == CPU on a PROV_CHECK_N stream with its own plan."""
@@ -978,7 +1272,7 @@ def provision_phase(torch, dev, profile: bool) -> None:
 
 
 def tour_phase(torch, results) -> None:
-    """Phase 9: the ten-act tour at its default 1M requests with the full
+    """Phase 10: the ten-act tour at its default 1M requests with the full
     danube engine in f32, the launch counters set to 0 just before it and
     read just after: one prefill (24 flash) and 8 forward passes (49
     RMSNorm each) in act 3, no SSD scan, no grouped matmul."""
@@ -1136,7 +1430,7 @@ def layers_vs_plain(torch, run, label: str, tag: str) -> None:
 
 def branches_phase(torch, dev, results, profile: bool, seed: int, card: str,
                    drive, warm, kernels_vs_plain) -> None:
-    """Phase 10: serve the three model branches at full width on the card
+    """Phase 11: serve the three model branches at full width on the card
     with exact launch counters, hold their kernels against the plain
     versions (whisper's prefill logits whole; qwen2-vl's and jamba's
     attention, MoE and SSD layer by layer), then card == CPU on the three
@@ -1733,27 +2027,32 @@ def main() -> None:
     print(f"[chip_smoke] fleet phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
 
-    # --- phase 6: the serving loop on the card, then the handoff ---------------
+    # --- phase 6: the sharded decide half, worlds 1 (NCCL), 2 and 4 (gloo) --
+    shard_phase(torch, dev, results, seed)
+    print(f"[chip_smoke] shard phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # --- phase 7: the serving loop on the card, then the handoff ---------------
     serve_phase(torch, dev, results, profile, seed)
     print(f"[chip_smoke] serve phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
 
-    # --- phase 7: the scenario matrix and its gates ---------------------------
+    # --- phase 8: the scenario matrix and its gates ---------------------------
     scenarios_phase(torch, dev, profile)
     print(f"[chip_smoke] scenarios phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
 
-    # --- phase 8: provisioning and the plan-driven serve loop ----------------
+    # --- phase 9: provisioning and the plan-driven serve loop ----------------
     provision_phase(torch, dev, profile)
     print(f"[chip_smoke] provision phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
 
-    # --- phase 9: the ten-act tour with the full danube engine ---------------
+    # --- phase 10: the ten-act tour with the full danube engine ---------------
     tour_phase(torch, results)
     print(f"[chip_smoke] tour phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
 
-    # --- phase 10: the model branches at full width ---------------------------
+    # --- phase 11: the model branches at full width ---------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]

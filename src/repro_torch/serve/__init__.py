@@ -1,7 +1,10 @@
 """Serving layer of the port: the routers, the routing policies (oracle,
 learned, capacity-capped), the placement and temporal admission engines,
 the rolling forecast re-planner, the continuous-batching request queue
-with online policy refit, joint capacity provisioning
+with online policy refit, sharded routing over ``torch.distributed``
+(``repro_torch.serve.distributed``: attach a mesh via
+``FleetRouter(mesh=...)`` and every entry point shards with the same
+decisions), joint capacity provisioning
 (``repro_torch.serve.provision``), the scenario matrix
 (``repro_torch.serve.scenarios``), synthetic streams and the LM engine."""
 
@@ -10,6 +13,11 @@ from repro_torch.core.carbon_intensity import (
     CarbonGrid,
     RegionSpec,
     site_regions,
+)
+from repro_torch.serve.distributed import (
+    DATA_AXIS,
+    data_mesh,
+    route_arrays_sharded,
 )
 from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.forecast import (

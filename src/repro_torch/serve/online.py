@@ -159,7 +159,7 @@ class OnlineRefitter:
                          embodied_model=fr.embodied_model,
                          regions=fr.regions, interference=fr.interference,
                          net_slowdown=fr.net_slowdown, policy=policy,
-                         grid=fr.grid, device=fr.device)
+                         grid=fr.grid, mesh=fr.mesh, device=fr.device)
         self.n_refits += 1
         self._since_refit = 0
         self.router = fr

@@ -15,6 +15,16 @@ Cross-region admission runs skip-full best-open attempts: the reference's
 ``any()`` per round (one host sync); the policy counts its rounds in
 ``last_rounds``.
 
+Sharded streams (``repro_torch.serve.distributed``): ``axis_name`` is the
+``torch.distributed`` process group the segment-sorted stream is sharded
+over, contiguously, one shard a rank. Each round lifts the local ranks and
+per-cell totals to global ones (``device_prefix_ranks``: one all-gather of
+the int32 totals), the loop condition is an all-reduced any
+(``_global_any``) so every rank runs the same rounds, and the shed
+histogram is summed over the ranks: the decisions are the single-rank
+program's, bit for bit. NCCL groups reduce on the card; gloo groups on
+the host (the small int32 tensors are copied there and back).
+
 Semantics: each cell has a fresh budget of ``caps[r, t]`` per window;
 priority is (round, stream order); a routable request whose every
 finite-score pair is full is shed (it keeps its first-choice pair but
@@ -34,6 +44,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import carbon_model
 from repro_torch.core.carbon_intensity import CarbonGrid
@@ -44,7 +55,6 @@ from repro_torch.serve.policy import (
     RoutingPolicy,
     _caps_tensor,
     nan_to_inf,
-    no_sharding,
     one_hot_i32,
     prefix_count,
     scores_with_reuse,
@@ -98,20 +108,61 @@ def windowed_segment_ranks(choice: torch.Tensor, active: torch.Tensor,
     return rank, totals
 
 
+def _host_staged(group) -> bool:
+    """Whether ``group``'s collectives take host tensors: NCCL reduces on
+    the card, gloo on the host."""
+    backend = dist.get_backend(group)
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"sharded routing runs over an nccl or a gloo "
+                         f"process group, got {backend!r}")
+    return backend == "gloo"
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """(D, *x.shape): every rank's ``x`` (equal shapes), stacked in rank
+    order, on ``x``'s device."""
+    src = x.cpu() if _host_staged(group) else x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(group.size())]
+    dist.all_gather(parts, src, group=group)
+    return torch.stack(parts).to(x.device)
+
+
+def _all_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The element-wise sum of ``x`` over the ranks of ``group``."""
+    buf = x.to("cpu", copy=True) if _host_staged(group) else x.clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf.to(x.device)
+
+
 def device_prefix_ranks(rank: torch.Tensor, totals: torch.Tensor,
-                        cell: torch.Tensor, axis_name: str | None
+                        cell: torch.Tensor, axis_name
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Lift one round's local ranks/totals to global values over a sharded
-    stream; the single-device identity (any axis is ROADMAP item 9)."""
-    no_sharding(axis_name)
-    return rank, totals
+    """Lift one round's local ``(rank, totals)`` to their global values
+    over a stream sharded contiguously across the ranks of the process
+    group ``axis_name``: every row of an earlier rank precedes every local
+    row in stream order, so a row's global rank is its local rank plus the
+    earlier ranks' active count in its cell (one all-gather of the totals
+    to (D, n_cells), an exclusive cumsum over ranks), and the global
+    totals are the column sums. All int32, so exact. ``None`` is the
+    single-rank identity."""
+    if axis_name is None:
+        return rank, totals
+    all_totals = all_gather_rows(totals, axis_name)
+    prior = (torch.cumsum(all_totals, dim=0, dtype=torch.int32)[
+        axis_name.rank()] - totals)
+    return (rank + prior[cell.long()],
+            all_totals.sum(dim=0, dtype=torch.int32))
 
 
-def _global_any(pred: torch.Tensor, axis_name: str | None) -> bool:
-    """``pred.any()`` as a host bool: the admission loops' condition, one
-    host sync per round (the sharded psum-any is item 9)."""
-    no_sharding(axis_name)
-    return bool(pred.any())
+def _global_any(pred: torch.Tensor, axis_name) -> bool:
+    """``pred.any()`` over every rank of ``axis_name`` as a host bool: the
+    admission loops' condition, one host sync per round. The ranks must
+    agree on it, or one would leave the loop's collectives while another
+    still waits in them."""
+    if axis_name is None:
+        return bool(pred.any())
+    flag = pred.any().to(torch.int32).reshape(1)
+    return bool(_all_sum(flag, axis_name).item() > 0)
 
 
 def _segment_bounds(seg_s: torch.Tensor, n_segments: int
@@ -436,8 +487,9 @@ class PlacementPolicy(RoutingPolicy):
                factors=None, fc_table=None, cap_scale=None, used0=None,
                axis_name=None):
         """(N,) int32 tier targets + ``PlacementState`` under segment-rank
-        (region, tier) admission."""
-        no_sharding(axis_name)
+        (region, tier) admission. ``axis_name`` (a process group) shards
+        the admission; a sharded caller gives every rank at least one row,
+        since an early return here would skip the ranks' collectives."""
         n = w.flops.shape[0]
         n_pairs = self._caps.numel()
         self.last_rounds = 0
@@ -453,7 +505,7 @@ class PlacementPolicy(RoutingPolicy):
             # diagonal penalty (1.0) never reorders a row
             s = scores_with_reuse(self.inner, w, env, avail, hour, outputs)
             return self._decide_diag(nan_to_inf(s), win, home, order, inv,
-                                     state, caps_rt, used0)
+                                     state, caps_rt, used0, axis_name)
         if self._sparse:
             if not self._use_factors(factors):
                 raise ValueError(
@@ -464,14 +516,14 @@ class PlacementPolicy(RoutingPolicy):
                 self._factors(factors, w, env), w, env, avail, home, hr,
                 fc_table=fc_table).reshape(n, -1)
             return self._decide_cross(nan_to_inf(s), win, home, order, inv,
-                                      state, caps_rt, used0,
+                                      state, caps_rt, used0, axis_name,
                                       cand_pair=self._cand_pair)
         if self._use_factors(factors):
             s = self.pair_scores_from_factors(
                 self._factors(factors, w, env), w, env, avail, home, hr,
                 fc_table=fc_table).reshape(n, n_pairs)
             return self._decide_cross(nan_to_inf(s), win, home, order, inv,
-                                      state, caps_rt, used0)
+                                      state, caps_rt, used0, axis_name)
         if self._has_rtt:
             raise ValueError(
                 "grid has a non-zero rtt_s but no EnergyFactors are "
@@ -480,10 +532,11 @@ class PlacementPolicy(RoutingPolicy):
                 "inner policy an infra")
         s = self.pair_scores(w, env, avail, home, hr).reshape(n, n_pairs)
         return self._decide_cross_legacy(nan_to_inf(s), win, home, order,
-                                         inv, state, caps_rt, used0)
+                                         inv, state, caps_rt, used0,
+                                         axis_name)
 
     def _decide_diag(self, s, win, home, order, inv, state, caps_rt,
-                     used0=None):
+                     used0=None, axis_name=None):
         """Tier-only admission: 3 spill rounds down each request's
         preference list within its (window, home) segment of width 3."""
         n = s.shape[0]
@@ -510,7 +563,7 @@ class PlacementPolicy(RoutingPolicy):
             col = col_base_s + choice
             cell = seg_s * width + choice  # == win * n_pairs + col
             rank, totals = device_prefix_ranks(*windowed_segment_ranks(
-                choice, active, cell, starts, ends, width), cell, None)
+                choice, active, cell, starts, ends, width), cell, axis_name)
             # 1-based rank vs <= cap: fractional caps admit floor(cap)
             fits = active & (used[cell] + rank + 1.0 <= caps_flat[col])
             exec_pair = torch.where(fits, col, exec_pair)
@@ -530,10 +583,10 @@ class PlacementPolicy(RoutingPolicy):
             shed=shed_s[inv],
             exec_region=None,
             shed_pair=state.shed_pair + _shed_pair(first_col_s, shed_s,
-                                                   n_regions))
+                                                   n_regions, axis_name))
 
     def _decide_cross(self, s, win, home, order, inv, state, caps_rt,
-                      used0=None, cand_pair=None):
+                      used0=None, axis_name=None, cand_pair=None):
         """Cross-region admission by skip-full best-open attempts: each
         round every unplaced request targets its best candidate whose cell
         still has budget (a masked argmin) and competes by stream order; a
@@ -577,12 +630,12 @@ class PlacementPolicy(RoutingPolicy):
         exec_pair = torch.zeros((n,), dtype=torch.long, device=dev)
         mask = open_mask(used, placed)
         rounds = 0
-        while rounds < limit and _global_any(mask, None):
+        while rounds < limit and _global_any(mask, axis_name):
             active = mask.any(dim=1)
             choice = to_pair(torch.argmin(torch.where(mask, s_s, inf), dim=1))
             cell = seg_s * n_pairs + choice
             rank, totals = device_prefix_ranks(*windowed_segment_ranks(
-                choice, active, cell, starts, ends, n_pairs), cell, None)
+                choice, active, cell, starts, ends, n_pairs), cell, axis_name)
             fits = active & (used[cell] + rank + 1.0 <= caps_flat[choice])
             exec_pair = torch.where(fits, choice, exec_pair)
             placed = placed | fits
@@ -592,11 +645,12 @@ class PlacementPolicy(RoutingPolicy):
         self.last_rounds = rounds
         return self._finalize_cross(s_s, home_s, routable, first_col,
                                     placed, exec_pair, used, inv, state,
-                                    used_init, home_row_s=home_row_s)
+                                    used_init, axis_name,
+                                    home_row_s=home_row_s)
 
     def _finalize_cross(self, s_s, home_s, routable, first_col, placed,
                         exec_pair, used, inv, state, used_init,
-                        home_row_s=None):
+                        axis_name=None, home_row_s=None):
         """Shed / fallback and back to stream order, shared by both
         cross-region programs. A request with no finite-score pair takes
         the uncapped fallback on its home region (argmin of an all-inf row
@@ -620,10 +674,10 @@ class PlacementPolicy(RoutingPolicy):
             shed=shed_s[inv],
             exec_region=exec_region.to(torch.int32)[inv],
             shed_pair=state.shed_pair + _shed_pair(first_col, shed_s,
-                                                   n_regions))
+                                                   n_regions, axis_name))
 
     def _decide_cross_legacy(self, s, win, home, order, inv, state, caps_rt,
-                             used0=None):
+                             used0=None, axis_name=None):
         """The legacy cross-region admission for inner policies without a
         factorized scorer: best-first preference by a stable (N, pairs)
         argsort, then ``adjacency degree x 3`` fixed spill rounds."""
@@ -649,7 +703,7 @@ class PlacementPolicy(RoutingPolicy):
             active = valid_s[:, k] & ~placed
             cell = seg_s * n_pairs + choice
             rank, totals = device_prefix_ranks(*windowed_segment_ranks(
-                choice, active, cell, starts, ends, n_pairs), cell, None)
+                choice, active, cell, starts, ends, n_pairs), cell, axis_name)
             fits = active & (used[cell] + rank + 1.0 <= caps_flat[choice])
             exec_pair = torch.where(fits, choice, exec_pair)
             placed = placed | fits
@@ -657,10 +711,13 @@ class PlacementPolicy(RoutingPolicy):
         self.last_rounds = rounds
         return self._finalize_cross(s_s, home_s, valid_s[:, 0], pref_s[:, 0],
                                     placed, exec_pair, used, inv, state,
-                                    used_init)
+                                    used_init, axis_name)
 
 
-def _shed_pair(first_col, shed, n_regions: int) -> torch.Tensor:
-    """(R, 3) int32 histogram of the shed rows' first-choice pairs."""
+def _shed_pair(first_col, shed, n_regions: int, axis_name=None
+               ) -> torch.Tensor:
+    """(R, 3) int32 histogram of the shed rows' first-choice pairs, summed
+    over the ranks of ``axis_name`` when sharded."""
     counts = torch.bincount(first_col[shed], minlength=n_regions * N_TARGETS)
-    return counts.to(torch.int32).reshape(n_regions, N_TARGETS)
+    counts = counts.to(torch.int32).reshape(n_regions, N_TARGETS)
+    return counts if axis_name is None else _all_sum(counts, axis_name)

@@ -27,7 +27,9 @@ einsums of the reference are ordered elementwise sums here
 (``carbon_model._dot_last``), so the card and the CPU score to the bit.
 
 The routers refuse any policy that is not a ``RoutingPolicy`` of this
-package. ``axis_name`` (the sharded path, item 9) raises when not None.
+package. ``axis_name`` is the process group of a sharded stream
+(``repro_torch.serve.distributed``): per-row policies ignore it, and
+``CapacityLimiter`` refuses it.
 """
 
 from __future__ import annotations
@@ -50,13 +52,13 @@ from repro_torch.device import resolve_device
 
 INF = float("inf")
 
-
-def no_sharding(axis_name: str | None) -> None:
-    """The sharded admission path is ROADMAP item 9: refuse a mesh axis."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "sharded routing (axis_name=...) is not ported yet: ROADMAP "
-            "item 9 (repro.serve.distributed)")
+#: why ``CapacityLimiter`` refuses a sharded stream; the pointer is the
+#: reference's
+CAPACITY_LIMITER_UNSHARDED = (
+    "CapacityLimiter's admission walks windows sequentially per device and "
+    "cannot reconcile caps across a sharded stream — use PlacementPolicy "
+    "(identity adjacency reproduces CapacityLimiter bit-for-bit) on the "
+    "sharded path")
 
 
 def one_hot_i32(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -518,10 +520,7 @@ class CapacityLimiter(RoutingPolicy):
         count over the (N, R*3) one-hot (the reference accumulates the same
         integers in float32)."""
         if axis_name is not None:
-            raise NotImplementedError(
-                "CapacityLimiter cannot reconcile caps across a sharded "
-                "stream — use PlacementPolicy (identity adjacency "
-                "reproduces CapacityLimiter bit-for-bit) on the sharded path")
+            raise NotImplementedError(CAPACITY_LIMITER_UNSHARDED)
         n = w.flops.shape[0]
         dev = w.flops.device
         caps_flat = self._caps.to(dev).reshape(-1)

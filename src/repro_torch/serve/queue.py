@@ -24,8 +24,9 @@ fixed-shape sub-batches whenever worker capacity frees up:
 The queue, drafts and pool are host numpy, as in the reference; each draft
 is routed on the router's device and its decisions read back once (one
 sync per draft). ``serve_stream(plan=...)`` steers the pool toward a
-``repro_torch.serve.provision.ProvisioningPlan`` each step.
-``BatchFormer(mesh=...)`` (sharded routing, ROADMAP item 9) raises.
+``repro_torch.serve.provision.ProvisioningPlan`` each step. A router with
+a mesh drafts through ``BatchFormer(mesh=...)``, whose drafts divide the
+mesh.
 """
 
 from __future__ import annotations
@@ -196,8 +197,11 @@ class BatchFormer:
     respect the accelerator memory of the hardware tier that will hold
     them. Drafts cross hourly window boundaries freely.
 
-    ``mesh`` (the reference pads drafts to a multiple of the routing mesh)
-    is ROADMAP item 9 and raises when not None.
+    With a ``mesh`` attached (the router's routing mesh,
+    ``repro_torch.serve.distributed``) drafts pad to ``n_devices * pow2``
+    instead: always divisible across the mesh, so the sharded program never
+    pads a second time. Pad rows are unroutable either way, and
+    ``mesh=None`` keeps the single-rank padding bit for bit.
     """
 
     max_batch: int = 65536
@@ -213,15 +217,11 @@ class BatchFormer:
     max_seq: int = 4096
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "BatchFormer(mesh=...) pads drafts for the sharded routing "
-                "path, which is not ported yet: ROADMAP item 9 "
-                "(repro.serve.distributed)")
         if self.max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
         if self.kv_slots is not None and self.kv_slots < 1:
             raise ValueError(f"kv_slots must be >= 1, got {self.kv_slots}")
+        self._shards = 1 if self.mesh is None else int(self.mesh.size())
 
     @classmethod
     def for_envelope(cls, envelope, *, kv_bytes_per_token: float,
@@ -243,8 +243,12 @@ class BatchFormer:
                    max_seq=max_seq, **kw)
 
     def _pad_to(self, k: int) -> int:
-        """Draft pad size: pow-2 bucketing (``forecast.pad_pow2``)."""
-        return pad_pow2(k, self.min_pad)
+        """Draft pad size: pow-2 bucketing (``forecast.pad_pow2``), scaled
+        to a device multiple when a mesh is attached (each shard gets the
+        same pow-2 bucket)."""
+        if self._shards == 1:
+            return pad_pow2(k, self.min_pad)
+        return self._shards * pad_pow2(-(-k // self._shards), self.min_pad)
 
     def draft(self, queue: RequestQueue, ready_idx: np.ndarray, now: int,
               max_defer_h: int = 0) -> list[FormedBatch]:
@@ -435,7 +439,7 @@ def serve_stream(fr, batch: RequestBatch, region: np.ndarray,
         pool = WorkerPool(plan.n_regions,
                           slots_per_worker=plan.slots_per_server)
     queue = RequestQueue.from_stream(batch, region, t_hours)
-    former = former or BatchFormer()
+    former = former or BatchFormer(mesh=fr.mesh)
     horizon = fr._horizon_h
     n = len(queue)
     if n and (queue.arr_hour.min() < 0 or queue.arr_hour.max() >= horizon):

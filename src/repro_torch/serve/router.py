@@ -12,7 +12,10 @@ decisions at actual CI. The reference's jit and buffer donation have no
 counterpart here: ``_fleet_route`` is the same arithmetic as eager torch
 on the router's device. ``route_stream_rolling`` delegates to
 ``serve.forecast`` and ``admit_windows(queue=...)`` to ``serve.queue``.
-The sharded path (``mesh=``, ROADMAP item 9) raises.
+With a mesh (``FleetRouter(mesh=...)`` or ``route_stream(..., mesh=...)``,
+a 1-D ``DeviceMesh`` of ``serve.distributed.data_mesh``) every stream is
+routed by the sharded program of ``serve.distributed``, with the same
+decisions.
 """
 
 from __future__ import annotations
@@ -310,13 +313,6 @@ class FleetRouteResult:
         return self.deferred_count / self.target.shape[0]
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded routing (mesh=) is not ported yet: ROADMAP item 9 "
-            "(repro.serve.distributed)")
-
-
 @dataclasses.dataclass
 class FleetRouter:
     """Route a (region, time)-tagged request stream against regional grids.
@@ -336,12 +332,12 @@ class FleetRouter:
     net_slowdown: tuple[float, float] = (1.0, 1.0)
     policy: RoutingPolicy | None = None
     grid: CarbonGrid | None = None
-    #: sharded routing is ROADMAP item 9; anything but None raises
+    #: 1-D ``DeviceMesh`` to shard every stream over (every rank of it
+    #: routes the same whole stream; ``serve.distributed``)
     mesh: object | None = None
     device: str | torch.device | None = None
 
     def __post_init__(self):
-        _no_mesh(self.mesh)
         _check_policy(self.policy)
         if self.device is None:
             self.device = ("cuda" if self.grid is None else self.grid.device)
@@ -385,15 +381,19 @@ class FleetRouter:
         policies: ``OraclePolicy(router.infra, ...)``."""
         return self._infra
 
-    def _fleet_route(self, w: Workload, avail, region, hour, ci_table, ci_fc,
-                     state, order, inv_order, slack, cap_scale, used0
-                     ) -> tuple[FleetRouteResult, object]:
-        """One stream through the policy, with the accounting: the policy
-        decides on the forecast view ``ci_fc``, routed carbon is charged at
-        the actuals ``ci_table``."""
+    def _route_rows(self, w: Workload, avail, region, hour, ci_table, ci_fc,
+                    state, order, inv_order, slack, cap_scale, used0,
+                    axis_name=None) -> tuple[dict, object]:
+        """One stream through the policy, per row: the policy decides on
+        the forecast view ``ci_fc``, carbon is charged at the actuals
+        ``ci_table``. Returns ``(rows, new_state)``; ``rows`` holds the
+        (N,) ``target``, ``carbon``, ``feas``, ``exec_region``, ``shed``
+        (None for a policy without capacity), ``exec_hour`` and ``defer``
+        (None unless temporal), and the baselines' carbon at actuals
+        (``ref_latency``, ``ref_energy``, ``ref_oracle``). ``axis_name`` is
+        the process group of a sharded stream (``serve.distributed``)."""
         interference, net_slowdown = self._interference, self._net_slowdown
         policy, infra = self.policy, self._infra
-        n_regions = len(self.regions)
         # forecast/actual split: decide on the forecast, charge at actuals;
         # without a forecast both are one table and the split is inert
         split = self.grid.ci_forecast is not None
@@ -425,16 +425,15 @@ class FleetRouter:
         targets, new_state = policy.decide(
             w, env, avail, state, region=region, hour=hour, outputs=out,
             order=order, inv_order=inv_order, slack=slack, factors=factors,
-            fc_table=ci_fc, cap_scale=cap_scale, used0=used0)
+            fc_table=ci_fc, cap_scale=cap_scale, used0=used0,
+            axis_name=axis_name)
         targets = targets.to(torch.int32)
         shed = getattr(new_state, "shed", None)
         exec_region = getattr(new_state, "exec_region", None)
         exec_hour = getattr(new_state, "exec_hour", None)
-        zero_i = torch.zeros((), dtype=torch.int32, device=self.device)
         if exec_region is None and exec_hour is None:
             # executes on arrival, charged at the arrival cell's actual CI
             exec_region = region
-            spilled = zero_i
             carbon = take_act(targets)
             feas = take_cols(out.ok, targets)
         elif factors is not None:
@@ -452,10 +451,6 @@ class FleetRouter:
                 factors, w, self.grid.rtt_s[region, er]) & avail
             carbon = take_cols(cf_exec, targets)
             feas = take_cols(ok_exec, targets)
-            moved = er != region
-            if shed is not None:
-                moved = moved & ~shed
-            spilled = moved.sum().to(torch.int32)
         else:
             # legacy sweep path: rows that moved are re-evaluated under the
             # executing region's CI (home [mobile, edge_net] at home)
@@ -468,19 +463,52 @@ class FleetRouter:
             moved = er != region
             if shed is not None:
                 moved = moved & ~shed
-            spilled = moved.sum().to(torch.int32)
             carbon = torch.where(moved, take_cols(out_exec.total_cf, targets),
                                  take_act(targets))
             feas = torch.where(moved, take_cols(out_exec.ok, targets),
                                take_cols(out.ok, targets))
             exec_region = er
+        return dict(
+            target=targets,
+            carbon=carbon,
+            feas=feas,
+            exec_region=exec_region.to(torch.int32),
+            shed=shed,
+            exec_hour=exec_hour,
+            defer=getattr(new_state, "defer_hours", None),
+            ref_latency=take_act(out.target_latency),
+            ref_energy=take_act(out.target_energy),
+            ref_oracle=take_act(out.target),
+        ), new_state
+
+    def _fleet_route(self, w: Workload, avail, region, hour, ci_table, ci_fc,
+                     state, order, inv_order, slack, cap_scale, used0
+                     ) -> tuple[FleetRouteResult, object]:
+        """``_route_rows`` and the stream's aggregates, on the device."""
+        rows, new_state = self._route_rows(w, avail, region, hour, ci_table,
+                                           ci_fc, state, order, inv_order,
+                                           slack, cap_scale, used0)
+        return self._aggregate(rows, region), new_state
+
+    def _aggregate(self, rows: dict, region) -> FleetRouteResult:
+        """The stream's ``FleetRouteResult`` from the per-row outputs of
+        ``_route_rows`` (in stream order) and the (N,) arrival regions, on
+        the device. The sharded route calls it on the gathered rows, so
+        both paths sum the same rows in the same order."""
+        n_regions = len(self.regions)
+        targets, carbon, feas = rows["target"], rows["carbon"], rows["feas"]
+        exec_region, shed = rows["exec_region"], rows["shed"]
+        zero_i = torch.zeros((), dtype=torch.int32, device=self.device)
+        moved = exec_region.long() != region
+        if shed is not None:
+            moved = moved & ~shed
         # (region, tier) counts: a histogram of the unshed rows' pairs
         pair = exec_region.long() * N_TARGETS + targets.long()
         if shed is not None:
             pair = pair[~shed]
         counts = torch.bincount(pair, minlength=n_regions * N_TARGETS).to(
             torch.int32).reshape(n_regions, N_TARGETS)
-        defer = getattr(new_state, "defer_hours", None)
+        defer = rows["defer"]
         if defer is None:
             deferred = zero_i
             mean_defer = torch.zeros((), dtype=torch.float32,
@@ -500,17 +528,17 @@ class FleetRouter:
             total_carbon_g=carbon.sum(),
             routed_carbon_g=(carbon.sum() if shed is None
                              else (carbon * ~shed).sum()),
-            latency_opt_carbon_g=take_act(out.target_latency).sum(),
-            energy_opt_carbon_g=take_act(out.target_energy).sum(),
-            oracle_carbon_g=take_act(out.target).sum(),
+            latency_opt_carbon_g=rows["ref_latency"].sum(),
+            energy_opt_carbon_g=rows["ref_energy"].sum(),
+            oracle_carbon_g=rows["ref_oracle"].sum(),
             infeasible_count=(~feas).sum().to(torch.int32),
             shed_count=(zero_i if shed is None
                         else shed.sum().to(torch.int32)),
-            exec_region=exec_region.to(torch.int32),
-            spilled_count=spilled,
+            exec_region=exec_region,
+            spilled_count=moved.sum().to(torch.int32),
             deferred_count=deferred,
             mean_defer_hours=mean_defer,
-        ), new_state
+        )
 
     def env_at(self, region: int, hour: int) -> Environment:
         """The Environment a request in ``region`` at absolute ``hour``
@@ -522,7 +550,9 @@ class FleetRouter:
     def route_stream(self, batch: RequestBatch, region: np.ndarray,
                      t_hours: np.ndarray, *, mesh=None) -> FleetRouteResult:
         """Route a stream: ``region`` (N,) region indices, ``t_hours`` (N,)
-        arrival times in absolute hours (wrapped modulo the horizon)."""
+        arrival times in absolute hours (wrapped modulo the horizon).
+        ``mesh`` shards this call (overriding the router's own ``mesh``);
+        the decisions are the same either way."""
         return self.route_stream_with_state(batch, region, t_hours,
                                             mesh=mesh)[0]
 
@@ -535,31 +565,49 @@ class FleetRouter:
         region_np = np.asarray(region).astype(np.int32)
         return self._route_arrays(batch, region_np, hour_np, mesh=mesh)
 
+    def _stream_order(self, region_np: np.ndarray, hour_np: np.ndarray
+                      ) -> tuple[np.ndarray, np.ndarray] | None:
+        """The policy's admission-segment order of a stream: a stable host
+        ``np.argsort`` by arrival window (or (window, home) for tier-only
+        placement) and its inverse, or None for a policy without a
+        ``stream_order_key``. The single-rank and the sharded routes both
+        sort by it."""
+        order_key = getattr(self.policy, "stream_order_key", None)
+        if order_key is None:
+            return None
+        n_win = getattr(self.policy, "n_windows", None) or self._horizon_h
+        win_np = hour_np % n_win
+        key = (win_np * len(self.regions) + region_np
+               if order_key == "window_region" else win_np)
+        order_np = np.argsort(key, kind="stable")
+        inv_np = np.empty_like(order_np)
+        inv_np[order_np] = np.arange(len(order_np))
+        return order_np, inv_np
+
     def _route_arrays(self, batch: RequestBatch, region_np: np.ndarray,
                       hour_np: np.ndarray, *, ci_fc=None, cap_scale=None,
                       used0=None, slack_np: np.ndarray | None = None,
                       mesh=None) -> tuple[FleetRouteResult, object]:
         """One ``_fleet_route`` call on prepared int32 arrays, with the
         re-planner's seams (``ci_fc``, ``cap_scale``, ``used0``,
-        ``slack_np``). The stream-order hint is a stable host-side
-        ``np.argsort`` by arrival window (or (window, home) for tier-only
-        placement), computed only for policies that declare a
-        ``stream_order_key``."""
-        _no_mesh(self.mesh if mesh is None else mesh)
+        ``slack_np``). The stream-order hint is ``_stream_order``. With a
+        mesh (``mesh=``, defaulting to the router's) a non-empty stream
+        takes the sharded program of ``serve.distributed``, so every
+        caller of this seam (``serve_stream``, the rolling re-planner)
+        rides it."""
+        mesh = self.mesh if mesh is None else mesh
+        if mesh is not None and len(batch) > 0:
+            from repro_torch.serve import distributed
+            return distributed.route_arrays_sharded(
+                self, batch, region_np, hour_np, mesh, ci_fc=ci_fc,
+                cap_scale=cap_scale, used0=used0, slack_np=slack_np)
         dev = self.device
-        order_key = getattr(self.policy, "stream_order_key", None)
-        if order_key is None:
+        sort = self._stream_order(region_np, hour_np)
+        if sort is None:
             order = inv_order = None
         else:
-            n_win = getattr(self.policy, "n_windows", None) or self._horizon_h
-            win_np = hour_np % n_win
-            key = (win_np * len(self.regions) + region_np
-                   if order_key == "window_region" else win_np)
-            order_np = np.argsort(key, kind="stable")
-            inv_np = np.empty_like(order_np)
-            inv_np[order_np] = np.arange(len(order_np))
-            order = torch.as_tensor(order_np, device=dev)
-            inv_order = torch.as_tensor(inv_np, device=dev)
+            order = torch.as_tensor(sort[0], device=dev)
+            inv_order = torch.as_tensor(sort[1], device=dev)
         region = torch.as_tensor(region_np, device=dev).long()
         hour = torch.as_tensor(hour_np, device=dev).long()
         slack = torch.as_tensor(batch.slack_h if slack_np is None

@@ -26,8 +26,8 @@ stream, grid and caps. Grids are built on the CPU (the reference's numpy
 draws reproduced bit for bit) and moved to the routing device by
 ``FleetRouter``. ``route_scenario`` returns the router's tensors as they
 are (the port donates no buffers, so the reference's host copy has no
-counterpart); ``caps_violation`` takes tensors or arrays. The sharded path
-(``mesh=``, ROADMAP item 9) raises.
+counterpart); ``caps_violation`` takes tensors or arrays. ``mesh=`` routes
+through the sharded program (``repro_torch.serve.distributed``).
 """
 
 from __future__ import annotations
@@ -62,7 +62,6 @@ from repro_torch.serve.router import (
     FleetRouter,
     FleetRouteResult,
     RequestBatch,
-    _no_mesh,
 )
 from repro_torch.serve.streams import arrival_stream, bake_ci_events
 from repro_torch.serve.temporal import TemporalPolicy
@@ -397,12 +396,12 @@ def route_scenario(scenario: Scenario, policy_factory, *, n: int = 2000,
     """Build ``scenario``, route it under ``policy_factory(infra, caps)`` on
     ``device``, and return ``(result, final_policy_state, run)``: the state
     carries per-request execution details (``TemporalState.exec_hour``,
-    ``PlacementState.counts``) the cap-property checks consume."""
-    _no_mesh(mesh)
+    ``PlacementState.counts``) the cap-property checks consume. ``mesh``
+    shards the route (``FleetRouter.route_stream``)."""
     run = scenario.build(n)
     fr = scenario_router(run, policy_factory, arch=arch, device=device)
     res, state = fr.route_stream_with_state(run.batch, run.region,
-                                            run.t_hours)
+                                            run.t_hours, mesh=mesh)
     return res, state, run
 
 
@@ -426,15 +425,14 @@ def run_matrix(scenarios: dict[str, Scenario] | None = None,
     """Route every policy over every scenario: the full results matrix,
     one ``MatrixCell`` per (scenario, policy), scenario-major order
     matching the registries' iteration order. Deterministic for a fixed
-    ``(scenarios, policies, n, arch)``."""
-    _no_mesh(mesh)
+    ``(scenarios, policies, n, arch)``, with or without a ``mesh``."""
     scenarios = default_scenarios() if scenarios is None else scenarios
     policies = default_policies() if policies is None else policies
     cells: list[MatrixCell] = []
     for sname, scenario in scenarios.items():
         for pname, factory in policies.items():
             res, _, run = route_scenario(scenario, factory, n=n, arch=arch,
-                                         device=device)
+                                         mesh=mesh, device=device)
             cells.append(_cell(sname, pname, len(run.batch), res))
     return cells
 

@@ -9,7 +9,9 @@ admits greedily against per-(window, region, tier) caps. Admission reuses
 the segment-rank machinery with a per-round prior-count matrix for the
 cross-window contention of deferred candidates. The reference's
 ``lax.while_loop`` becomes a Python loop with one device-side ``any()`` per
-round; ``last_rounds`` counts them.
+round; ``last_rounds`` counts them. A sharded stream (``axis_name``, a
+process group) reconciles its ranks through the placement module's hooks,
+before the cross-window shift, so the shift sees the fleet-wide totals.
 
 The horizon does not wrap: candidate hours past the grid's last hour are
 refused. Zero slack reproduces ``PlacementPolicy`` bit for bit.
@@ -33,7 +35,7 @@ from repro_torch.serve.placement import (
     device_prefix_ranks,
     windowed_segment_ranks,
 )
-from repro_torch.serve.policy import INF, nan_to_inf, no_sharding, take_cols
+from repro_torch.serve.policy import INF, nan_to_inf, take_cols
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,8 +166,8 @@ class TemporalPolicy(PlacementPolicy):
                factors=None, fc_table=None, cap_scale=None, used0=None,
                axis_name=None):
         """(N,) int32 tier targets + ``TemporalState`` under joint (defer,
-        region, tier) admission."""
-        no_sharding(axis_name)
+        region, tier) admission; ``axis_name`` as in
+        ``PlacementPolicy.decide``."""
         n = w.flops.shape[0]
         dev = w.flops.device
         n_regions, n_pairs = self._caps.shape[0], self._caps.numel()
@@ -260,7 +262,7 @@ class TemporalPolicy(PlacementPolicy):
         exec_d = torch.zeros((n,), dtype=torch.long, device=dev)
         mask = open_mask(used, placed)
         rounds = 0
-        while rounds < limit and _global_any(mask, None):
+        while rounds < limit and _global_any(mask, axis_name):
             active = mask.any(dim=1)
             choice = torch.argmin(torch.where(mask, s_s, inf), dim=1)
             d = choice // sub_p
@@ -280,7 +282,7 @@ class TemporalPolicy(PlacementPolicy):
                 rank_w, totals = windowed_segment_ranks(
                     rank_col, active, local_cell, starts, ends, rank_width)
             rank_w, totals = device_prefix_ranks(rank_w, totals, local_cell,
-                                                 None)
+                                                 axis_name)
             e = (win_s + d) % W
             cell = e * n_pairs + pair
             # shift each arrival window's per-(defer, column) totals onto
@@ -342,7 +344,8 @@ class TemporalPolicy(PlacementPolicy):
             counts=state.counts + counts.to(torch.int32),
             shed=shed_s[inv],
             exec_region=i32(exec_region),
-            shed_pair=state.shed_pair + _shed_pair(pair0, shed_s, n_regions),
+            shed_pair=state.shed_pair + _shed_pair(pair0, shed_s, n_regions,
+                                                   axis_name),
             # admitted candidates satisfy hr + d < horizon: no modulo
             exec_hour=i32(hr_s + exec_d),
             defer_hours=i32(exec_d))

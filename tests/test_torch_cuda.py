@@ -803,3 +803,57 @@ class TestCudaScenarios:
         assert launches == dict({k: 0 for k in launches},
                                 flash_attention=cfg.n_layers,
                                 fused_rmsnorm=(2 * cfg.n_layers + 1) * 8)
+
+
+@pytest.mark.cuda
+class TestCudaShard:
+    """Sharded routing on the card decides as the unsharded card route: a
+    world of one over NCCL in this process, and a world of two spawned
+    ranks sharing the card over gloo (``torch_dist_parity``)."""
+
+    FIELDS = ("target", "feasible", "exec_region", "counts", "shed_count",
+              "spilled_count")
+
+    def test_world_one_nccl(self, cuda, tmp_path):
+        from repro_torch.serve.streams import multi_region_stream
+        from torch_dist_parity import one_rank_world
+
+        stream = multi_region_stream(FLEET_N, 4)
+        fr = _fleet_router("xregion", FLEET_N, cuda)
+        want, want_state = fr.route_stream_with_state(*stream)
+        with one_rank_world(str(tmp_path), "nccl", "cuda") as mesh:
+            got, state = fr.route_stream_with_state(*stream, mesh=mesh)
+        assert got.target.device.type == "cuda"
+        for f in self.FIELDS:
+            np.testing.assert_array_equal(getattr(got, f).cpu().numpy(),
+                                          getattr(want, f).cpu().numpy(),
+                                          err_msg=f)
+        for f in ("shed", "shed_pair", "counts"):
+            np.testing.assert_array_equal(
+                getattr(state, f).cpu().numpy(),
+                getattr(want_state, f).cpu().numpy(), err_msg=f)
+        for f in ("carbon_g", "routed_carbon_g"):  # the same bits
+            assert (getattr(got, f).cpu().numpy().tobytes()
+                    == getattr(want, f).cpu().numpy().tobytes()), f
+        assert int(got.shed_count) > 0 and int(got.spilled_count) > 0
+
+    def test_world_two_gloo_on_one_card(self, cuda, tmp_path):
+        import torch_dist_parity as tdp
+
+        case = ("placement-cross", FLEET_N)
+        ranks = tdp.run_world(2, str(tmp_path), "cuda:0", (case,), False)
+        cols, region, t = tdp.invariance_stream(FLEET_N)
+        want = tdp.flatten(*tdp.port_router(case[0], device="cuda")
+                           .route_stream_with_state(tdp.port_batch(cols),
+                                                    region, t), "want")
+        key = f"{case[0]}@{case[1]}"
+        for rank in ranks:
+            for f in self.FIELDS + ("state.shed", "state.counts"):
+                np.testing.assert_array_equal(rank[f"{key}/{f}"],
+                                              want[f"want/{f}"], err_msg=f)
+            assert rank[f"{key}/routed_carbon_g"].tobytes() == ranks[0][
+                f"{key}/routed_carbon_g"].tobytes()
+        for f in ("carbon_g", "routed_carbon_g"):  # the same bits
+            assert ranks[0][f"{key}/{f}"].tobytes() == want[
+                f"want/{f}"].tobytes(), f
+        assert int(want["want/spilled_count"]) > 0

@@ -32,6 +32,7 @@ from repro_torch.serve import policy as t_pol  # noqa: E402
 from repro_torch.serve import queue as t_q  # noqa: E402
 from repro_torch.serve import router as t_router  # noqa: E402
 
+import torch_dist_parity as tdp  # noqa: E402
 from torch_fleet_parity import (  # noqa: E402
     ARCH,
     CPU,
@@ -282,14 +283,20 @@ class TestAdmissionAndRefusals:
         for h, idx in enumerate(wins):
             assert (np.floor(t_hours[idx]).astype(int) % 24 == h).all()
 
-    def test_not_ported_paths_raise(self, env):
+    def test_not_ported_paths_raise(self, env, tmp_path):
         cfg, inf = env["t_cfg"], env["t_inf"]
         fr = t_router.FleetRouter(cfg, device=CPU)
         b, reg, th = env["stream"]
-        with pytest.raises(NotImplementedError, match="item 9"):
-            t_router.FleetRouter(cfg, device=CPU, mesh=object())
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fr.route_stream(torch_batch(b), reg, th, mesh=object())
+        # the sharded path is ported (tests/test_torch_distributed.py): a
+        # mesh, on the router or on the call, routes the same decisions
+        want = fr.route_stream(torch_batch(b), reg, th)
+        with tdp.one_rank_world(str(tmp_path)) as mesh:
+            for got in (t_router.FleetRouter(cfg, device=CPU, mesh=mesh)
+                        .route_stream(torch_batch(b), reg, th),
+                        fr.route_stream(torch_batch(b), reg, th, mesh=mesh)):
+                for f in ("target", "exec_region", "counts", "carbon_g"):
+                    np.testing.assert_array_equal(host(getattr(got, f)),
+                                                  host(getattr(want, f)))
         # the serving loop is ported: the rolling planner refuses only a policy
         # that cannot defer, and admit_windows(queue=) delegates
         with pytest.raises(ValueError, match="TemporalPolicy"):
@@ -314,9 +321,13 @@ class TestAdmissionAndRefusals:
         pol = t_pl.PlacementPolicy(t_pol.OraclePolicy(inf), dc_caps(N, 4, 1))
         t_router.FleetRouter(cfg, device=CPU, policy=pol)
         w = torch_batch(b).workload(cfg, device=CPU)
-        with pytest.raises(NotImplementedError, match="item 9"):
-            pol.decide(w, fr.env_at(0, 0), torch.ones((N, 3), dtype=bool),
-                       pol.initial_state(4, N), axis_name="data")
+        args = (w, fr.env_at(0, 0), torch.ones((N, 3), dtype=bool),
+                pol.initial_state(4, N))
+        want, _ = pol.decide(*args)
+        (tmp_path / "decide").mkdir()
+        with tdp.one_rank_world(str(tmp_path / "decide")) as mesh:
+            got, _ = pol.decide(*args, axis_name=mesh.get_group())
+        np.testing.assert_array_equal(host(got), host(want))
 
     def test_validation(self, env):
         cfg, inf = env["t_cfg"], env["t_inf"]

@@ -35,6 +35,7 @@ from repro_torch.serve import placement as t_pl  # noqa: E402
 from repro_torch.serve import queue as t_q  # noqa: E402
 from repro_torch.serve import router as t_router  # noqa: E402
 
+import torch_dist_parity as tdp  # noqa: E402
 from torch_fleet_parity import (  # noqa: E402
     ARCH,
     CPU,
@@ -294,10 +295,22 @@ class TestAdmission:
 
 
 class TestStubs:
-    """The parts that wait for other ROADMAP items raise, naming them."""
+    """The sharded routing this class once held as a stub (ROADMAP item 9)
+    is ported: its drafts and routes (``tests/test_torch_distributed.py``
+    holds them at worlds 1, 2 and 4)."""
 
-    def test_mesh_is_item_9(self, env):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            t_q.BatchFormer(mesh=object())
-        with pytest.raises(NotImplementedError, match="item 9"):
-            t_router.FleetRouter(env["t_cfg"], mesh=object(), device=CPU)
+    def test_mesh_is_item_9(self, env, tmp_path):
+        class FakeMesh:
+            def size(self):
+                return 4
+
+        assert t_q.BatchFormer(mesh=FakeMesh())._pad_to(17) == 4 * 16
+        with tdp.one_rank_world(str(tmp_path)) as mesh:
+            fr = t_router.FleetRouter(env["t_cfg"], mesh=mesh, device=CPU)
+            assert fr.mesh is mesh
+            assert t_q.BatchFormer(mesh=mesh)._pad_to(17) == 32
+            got = tdp.served(mesh)
+        want = tdp.served()
+        for f in tdp.SERVED_FIELDS:
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                          err_msg=f)

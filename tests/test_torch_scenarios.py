@@ -18,6 +18,7 @@ from repro.serve import scenarios as r_sc  # noqa: E402
 from repro_torch.launch import scenario_matrix as t_launch  # noqa: E402
 from repro_torch.serve import scenarios as t_sc  # noqa: E402
 
+import torch_dist_parity as tdp  # noqa: E402
 from torch_fleet_parity import CPU, RTOL, one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.usefixtures("one_thread")
@@ -190,15 +191,26 @@ def test_mesoscale_plans_take_any_stream_size():
     assert m.slo.total_carbon_g <= m.oracle.total_carbon_g
 
 
-def test_mesh_is_item_9():
+def test_mesh_is_item_9(tmp_path):
+    """``mesh=`` (ROADMAP item 9, ported) routes the same cells."""
     scenario = t_sc.default_scenarios()["steady_diurnal"]
     factory = t_sc.default_policies()["oracle-immediate"]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_sc.route_scenario(scenario, factory, n=SMALL, mesh=object(),
+    want, _, _ = t_sc.route_scenario(scenario, factory, n=SMALL, device=CPU)
+    cells = t_sc.run_matrix({"steady_diurnal": scenario}, n=SMALL,
                             device=CPU)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_sc.run_matrix({"steady_diurnal": scenario}, n=SMALL,
-                        mesh=object(), device=CPU)
+    with tdp.one_rank_world(str(tmp_path)) as mesh:
+        got, _, _ = t_sc.route_scenario(scenario, factory, n=SMALL,
+                                        mesh=mesh, device=CPU)
+        meshed = t_sc.run_matrix({"steady_diurnal": scenario}, n=SMALL,
+                                 mesh=mesh, device=CPU)
+    for f in ("target", "exec_region", "counts", "carbon_g"):
+        np.testing.assert_array_equal(got.__dict__[f].numpy(),
+                                      want.__dict__[f].numpy(), err_msg=f)
+    assert [c.policy for c in meshed] == [c.policy for c in cells]
+    for a, b in zip(meshed, cells):
+        assert (a.shed_rate, a.spill_rate, a.defer_rate) == (
+            b.shed_rate, b.spill_rate, b.defer_rate)
+        assert a.routed_g == pytest.approx(b.routed_g, rel=RTOL)
 
 
 def test_default_device_is_cuda():
