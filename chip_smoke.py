@@ -139,9 +139,31 @@ Phases (any failure ends the script with a non-zero exit):
    limit; then card == CPU on the three smoke configs (logits within 1e-4,
    greedy tokens equal). ``--profile`` adds each path's prefill and decode
    breakdown.
+12. ``[train]``: training through ``repro_torch.launch.train.main`` at full
+   width, f32, TF32 off, 1 cold and 5 warm steps each (``TRAIN_FULL``):
+   ``h2o-danube-1.8b`` at (4, 512) (dense attention) and at (1, 4096)
+   (the reference's train_4k length: blocked causal attention) with remat
+   ``dots``, ``mamba2-780m`` at (4, 512) (``ssd_chunked`` at chunk 256),
+   ``whisper-base`` at
+   (4, 128) over 1500 stub frames (the encoder and the cross attention);
+   one line each of losses and grad norms (all finite), one of the warm
+   step (ms, tokens/s, peak memory, the bound of ``train_flops`` at 67
+   TFLOP/s and the share of it) with the card's name and power limit.
+   On danube, at one state and batch, remat ``dots`` / ``minimal`` /
+   ``none`` and 2 microbatches give the same loss and grad norm within
+   1e-5. Then the six smoke configs take 3 steps on the card and on the
+   CPU (losses within 1e-4), the reference's Markov-language recipe
+   (deepseek-7b smoke, 25 steps) ends below 0.85 ln V, an elastic run
+   that fails at step 12 resumes from step 10 and ends within 1e-6 of the
+   uninterrupted one, and 2 spawned ranks sharing the card over gloo train
+   3 steps in the int8 and bf16 modes, every rank ending with the same
+   parameters, equal to an in-process model of the per-rank arithmetic.
+   The training path runs no kernel (the kernels have no backward, nor
+   have the reference's): the launch counters must not move.
 
 The second-last line is one JSON object ``{"kernels": [...]}`` with each
-kernel's launches on the served paths, error, times and bound; the line
+kernel's launches on the served paths (none on the training path),
+error, times and bound; the line
 before it is the card's name and power limit from nvidia-smi; the last
 line is ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA
 device or without the repository beside this file.
@@ -592,25 +614,26 @@ def sync(torch, dev) -> None:
         torch.cuda.synchronize()
 
 
-def spawn_world(world: int, tmp: str, device: str) -> list[dict]:
-    """Run ``world`` ranks of ``shard_rank`` (start method spawn, a
-    FileStore under ``tmp``) and return their records; a rank that fails or
-    outlives ``SHARD_TIMEOUT_S`` fails the phase, and none is left
-    running."""
+def spawn_world(world: int, tmp: str, device: str, fn=shard_rank,
+                timeout_s: float = SHARD_TIMEOUT_S) -> list[dict]:
+    """Run ``world`` ranks of ``fn`` (``shard_rank`` or ``train_rank``;
+    start method spawn, a FileStore under ``tmp``) and return their
+    records; a rank that fails or outlives ``timeout_s`` fails the phase,
+    and none is left running."""
     import os
 
     import torch.multiprocessing as mp
 
     out = os.path.join(tmp, f"world{world}")
     os.makedirs(out)
-    ctx = mp.start_processes(shard_rank, args=(world, os.path.join(
+    ctx = mp.start_processes(fn, args=(world, os.path.join(
         out, "store"), out, device), nprocs=world, join=False,
         start_method="spawn")
-    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    deadline = time.monotonic() + timeout_s
     try:
         while not ctx.join(timeout=1.0):
-            check(time.monotonic() < deadline, f"shard world {world}: ranks "
-                  f"still running after {SHARD_TIMEOUT_S} s")
+            check(time.monotonic() < deadline, f"{fn.__name__} world "
+                  f"{world}: ranks still running after {timeout_s} s")
     finally:
         for proc in ctx.processes:
             if proc.is_alive():
@@ -1559,6 +1582,409 @@ def branches_phase(torch, dev, results, profile: bool, seed: int, card: str,
     torch.cuda.empty_cache()
 
 
+# --- [train]: the training path ------------------------------------------
+# Full-width training through the launcher (arch, batch, seq, remat), f32,
+# TF32 off: 1 cold step and TRAIN_STEPS - 1 warm ones each. danube's 1.8 B
+# params, grads and AdamW moments take ~29 GB; at (1, 4096), the
+# reference's train_4k length, its attention takes the blocked causal
+# form (Sq > 2 x attn_block_q; its 4096 window covers every key, so it is
+# dropped); at 512 the dense one. mamba2's state takes ~12.5 GB; whisper
+# trains its encoder over 1500 stub frames and the cross attention.
+TRAIN_FULL = [(DANUBE, 4, 512, "dots"), (DANUBE, 1, 4096, "dots"),
+              (MAMBA, 4, 512, "dots"), (WHISPER, 4, 128, "dots")]
+TRAIN_EQ_RUN = (DANUBE, 4, 512)  # where remat and microbatches are compared
+TRAIN_STEPS = 6
+TRAIN_EQ_RTOL = 1e-5  # remat policies and microbatches on danube
+TRAIN_CPU_RTOL = 1e-4  # smoke losses, card against CPU
+TRAIN_RESUME_ATOL = 1e-6  # embedding backward on CUDA may use atomics
+TRAIN_SMOKE = (DANUBE, MAMBA, QWEN3, WHISPER, QWEN2VL, JAMBA)
+TRAIN_DP_WORLD = 2
+TRAIN_DP_MODES = ("int8", "bf16")
+TRAIN_DP_STEPS = 3
+TRAIN_TIMEOUT_S = 300
+
+
+def train_flops(model, cfg, batch: int, seq: int) -> int:
+    """Least operations of one training step: 6 x each weight matrix's
+    elements x the tokens it multiplies (an MoE's k of E experts, a tied
+    head once more over the decoder's tokens; the encoder's weights and
+    the cross attention's K/V over the encoder's), plus 3 x 4 H D per
+    visible (query, key) pair of every attention. Lookups, norms, biases,
+    the depthwise convolutions, the SSD scan's chunk algebra (under 1% at
+    mamba2's width) and elementwise work count nothing."""
+    enc = cfg.encoder_seq if cfg.is_encoder_decoder else 0
+    dec_tok, enc_tok = batch * seq, batch * enc
+    mm = 0
+    for name, p in model.named_parameters():
+        if p.ndim < 2 or name in ("embed", "pos_embed") or ".conv_" in name:
+            continue
+        n = p.numel()
+        if ".moe.w_" in name:
+            n = n * cfg.experts_per_token // cfg.n_experts
+        enc_side = name.startswith("encoder.") or ".cross.wk" in name \
+            or ".cross.wv" in name
+        mm += n * (enc_tok if enc_side else dec_tok)
+    if cfg.tie_embeddings:
+        mm += model.embed.numel() * dec_tok
+    window = cfg.sliding_window or seq
+    causal = sum(min(q + 1, window) for q in range(seq))
+    n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    pairs = batch * (n_attn * causal + (cfg.n_layers * seq * enc
+                     + cfg.n_encoder_layers * enc * enc if enc else 0))
+    return 6 * mm + 12 * cfg.n_heads * cfg.head_dim * pairs
+
+
+def train_rank(rank: int, world: int, store: str, out: str,
+               device: str) -> None:
+    """One spawned rank of a gloo world: for each of ``TRAIN_DP_MODES``,
+    ``TRAIN_DP_STEPS`` compressed data-parallel steps of the danube smoke
+    model on this rank's shard, on ``device``; writes the sha256 of the
+    final parameters, the losses and (rank 0) the parameters themselves
+    under ``out``."""
+    import datetime
+    import hashlib
+    import os
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    if dev.type == "cuda":  # every rank on the same card
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(
+                                seconds=TRAIN_TIMEOUT_S))
+    try:
+        record = {}
+        for mode in TRAIN_DP_MODES:
+            model, state, step, make_batch = dp_setup(
+                torch, dev, mode, mesh=dist.group.WORLD)
+            losses = []
+            for i in range(TRAIN_DP_STEPS):
+                state, m = step(state, make_batch(i, rank, world))
+                losses.append(float(m["loss"]))
+            flat = torch.cat([p.detach().reshape(-1).cpu()
+                              for p in state.params.values()])
+            record[mode] = dict(losses=losses, digest=hashlib.sha256(
+                flat.numpy().tobytes()).hexdigest())
+            if rank == 0:
+                torch.save({k: v.detach().cpu() for k, v in
+                            state.params.items()},
+                           os.path.join(out, f"params_{mode}.pt"))
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(record, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_setup(torch, dev, mode: str, mesh=None):
+    """The danube smoke model (seeded on the host, so every process
+    builds the same one), AdamW, its state, the step (compression
+    ``mode`` over ``mesh``, none without one) and the batch of
+    (step, shard, n_shards): 32 tokens, a global batch of 8."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, ShapeKind
+    from repro_torch.data import batch_for
+    from repro_torch.models import Transformer
+    from repro_torch.train import adamw, constant_lr, init_train_state
+    from repro_torch.train import make_train_step
+
+    cfg = get_config(DANUBE, smoke=True)
+    model = Transformer(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(5)).to(dev)
+    opt = adamw(constant_lr(1e-3))
+    state = init_train_state(dict(model.named_parameters()), opt,
+                             compression=mode if mesh is not None else "none")
+    step = make_train_step(model, opt, mesh=mesh, compression=(
+        mode if mesh is not None else "none"))
+    shape = ShapeConfig("dp", ShapeKind.TRAIN, 32, 8)
+
+    def make_batch(i, shard, n_shards):
+        return batch_for(cfg, shape, step=i, shard=shard, n_shards=n_shards,
+                         device=dev)
+
+    return model, state, step, make_batch
+
+
+def dp_model(torch, dev, mode: str) -> tuple[dict, list]:
+    """The reference's per-rank ``compress_and_reduce`` arithmetic, written
+    out for ``TRAIN_DP_WORLD`` ranks in this one process: each rank's
+    gradient on its shard plus its residual; bf16: the bf16 values summed
+    (one add for two ranks); int8: the largest |value| of each tensor over
+    the ranks, / 127, the rounded values clipped to +-127 and summed
+    exactly; the mean to AdamW, each residual the value minus what it
+    sent. Returns (final parameters, mean losses)."""
+    from repro_torch.train import adamw, constant_lr
+    from repro_torch.train.train_step import grads_over_microbatches
+
+    model, state, _, make_batch = dp_setup(torch, dev, mode)
+    opt_update = adamw(constant_lr(1e-3)).update
+    n = TRAIN_DP_WORLD
+    ef = [{k: torch.zeros_like(p, dtype=torch.float32)
+           for k, p in state.params.items()} for _ in range(n)]
+    losses = []
+    for i in range(TRAIN_DP_STEPS):
+        per = [grads_over_microbatches(model, state.params,
+                                       make_batch(i, r, n), remat="dots")
+               for r in range(n)]
+        losses.append(sum(float(m["loss"]) for _, m in per) / n)
+        mean = {}
+        for k in state.params:
+            comp = [g[k].float() + e[k] for (g, _), e in zip(per, ef)]
+            if mode == "bf16":
+                sent = [c.to(torch.bfloat16).float() for c in comp]
+                summed = (comp[0].to(torch.bfloat16)
+                          + comp[1].to(torch.bfloat16)).float()
+            else:
+                amax = torch.stack([c.abs().max() for c in comp]).max()
+                scale = amax.clamp_min(1e-12) / 127.0
+                q = [torch.clamp(torch.round(c / scale), -127, 127)
+                     for c in comp]
+                sent = [qi * scale for qi in q]
+                summed = sum(qi.to(torch.int32) for qi in q).float() * scale
+            mean[k] = summed / n
+            for e, c, sv in zip(ef, comp, sent):
+                e[k] = c - sv
+        params, opt, _ = opt_update(mean, state.opt, state.params)
+        state = type(state)(params, opt, None)
+    return {k: v.detach().cpu() for k, v in state.params.items()}, losses
+
+
+def train_phase(torch, dev, results, card: str,
+                profile: bool = False) -> None:
+    """Phase 12, ``[train]``: full-width training through the launcher,
+    the remat and microbatch equivalences, card == CPU on the six smoke
+    configs, the reference's Markov-language recipe, elastic resume and
+    compressed data parallelism over gloo. The launch counters are set to
+    0 before each full-width run and at the start of the rest, and read
+    after each run, after the remat and microbatch comparison and after a
+    profiled step: every count must stay 0 (recorded in ``results``).
+    ``profile``: device time by op over one more warm step of each
+    full-width model."""
+    import math
+    import tempfile
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, ShapeKind
+    from repro_torch.data import batch_for
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import Transformer
+    from repro_torch.train import (
+        ElasticRunner,
+        adamw,
+        constant_lr,
+        global_norm,
+        init_train_state,
+        make_train_step,
+        warmup_cosine,
+    )
+    from repro_torch.train.train_step import grads_over_microbatches
+
+    def no_launches(label):
+        counts = dict(ops.LAUNCHES)
+        check(not any(counts.values()), f"{label}: the training path "
+              f"launched kernels: {counts}")
+        for name, r in results.items():
+            r["launches_by_path"][label] = counts[name]
+
+    print(f"[train] torch {torch.__version__}; selective checkpointing: "
+          f"{hasattr(torch.utils.checkpoint, 'create_selective_checkpoint_contexts')}")
+
+    def finite(xs):
+        return all(math.isfinite(x) for x in xs)
+
+    # --- full width through the launcher -------------------------------------
+    for arch, batch, seq, remat in TRAIN_FULL:
+        label = f"train {arch} ({batch}, {seq})"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        run = train.main(["--arch", arch, "--full", "--device", "cuda",
+                          "--dtype", "float32", "--batch", str(batch),
+                          "--seq-len", str(seq), "--steps", str(TRAIN_STEPS),
+                          "--remat", remat, "--lr", "1e-4", "--warmup", "2",
+                          "--log-every", str(TRAIN_STEPS)])
+        peak = torch.cuda.max_memory_allocated()
+        no_launches(label)
+        losses = [h["loss"] for h in run.history]
+        gnorms = [h["grad_norm"] for h in run.history]
+        check(finite(losses) and finite(gnorms),
+              f"{arch}: non-finite loss or grad norm {losses} {gnorms}")
+        warm = run.step_seconds[1:]
+        ms = sum(warm) / len(warm) * 1e3
+        flops = train_flops(run.model, run.cfg, batch, seq)
+        bound_ms = flops / PEAK_FLOPS["float32"] * 1e3
+        n_params = sum(p.numel() for p in run.model.parameters())
+        print(f"[train] {arch} f32 ({batch}, {seq}), remat {remat}, "
+              f"{n_params / 1e9:.3f} B params: losses "
+              f"{[round(x, 4) for x in losses]}, grad norms "
+              f"{[round(x, 4) for x in gnorms]}")
+        print(f"[train] {arch}: cold step {run.step_seconds[0] * 1e3:.1f} "
+              f"ms, warm {ms:.1f} ms/step (min {min(warm) * 1e3:.1f}, max "
+              f"{max(warm) * 1e3:.1f}), {run.tokens_per_step / ms * 1e3:.0f}"
+              f" tokens/s, peak {peak / 1e9:.2f} GB; bound {bound_ms:.1f} ms"
+              f" ({flops / 1e12:.2f} TFLOP at 67 TFLOP/s f32), "
+              f"{bound_ms / ms:.1%} of it [{card}]")
+        if profile:
+            state = run.state
+            step = make_train_step(run.model, adamw(constant_lr(1e-4)),
+                                   remat=remat)
+            b = batch_for(run.cfg, ShapeConfig("t", ShapeKind.TRAIN, seq,
+                                               batch), step=TRAIN_STEPS,
+                          device=dev)
+
+            def one_step():
+                nonlocal state
+                state, _ = step(state, b)
+
+            device_profile(torch, one_step,
+                           f"{arch} ({batch}, {seq}) warm train step")
+            state = step = None
+            no_launches(f"{label}, profiled step")
+        if (arch, batch, seq) != TRAIN_EQ_RUN:
+            run = None
+            continue
+        # the same state and batch under each remat policy, and in two
+        # microbatches: loss and grad norm
+        model, cfg = run.model, run.cfg
+        run = None  # drops the moments; the model keeps its weights
+        torch.cuda.empty_cache()
+        params = dict(model.named_parameters())
+        b0 = batch_for(cfg, ShapeConfig("t", ShapeKind.TRAIN, seq, batch),
+                       step=0, device=dev)
+        seen = {}
+        for how, policy, k in (("dots", "dots", 1),
+                               ("minimal", "minimal", 1),
+                               ("none", "none", 1),
+                               ("dots, 2 microbatches", "dots", 2)):
+            g, m = grads_over_microbatches(model, params, b0, remat=policy,
+                                           microbatches=k)
+            seen[how] = (float(m["loss"]), float(global_norm(g)))
+            del g
+        ref = seen["dots"]
+        for how, (loss, gn) in seen.items():
+            rel = max(abs(loss - ref[0]) / abs(ref[0]),
+                      abs(gn - ref[1]) / abs(ref[1]))
+            print(f"[train] {arch} step-1 state, remat {how}: loss "
+                  f"{loss:.7f}, grad norm {gn:.7f}, rel. diff to dots "
+                  f"{rel:.2e} (rtol {TRAIN_EQ_RTOL:g})")
+            check(rel <= TRAIN_EQ_RTOL, f"{arch}: remat {how} moves the "
+                  f"loss or grad norm by {rel:.2e}")
+        no_launches(f"{label}, remat and microbatches")
+        del model, params, b0
+        torch.cuda.empty_cache()
+
+    # --- card against CPU on the smoke configs ---------------------------------
+    ops.reset_launches()
+    for arch in TRAIN_SMOKE:
+        smoke = get_config(arch, smoke=True)
+        cpu_model = Transformer(smoke, device="cpu", max_positions=64,
+                                generator=torch.Generator().manual_seed(1))
+        gpu_model = Transformer(smoke, device=dev, max_positions=64)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        shape = ShapeConfig("t", ShapeKind.TRAIN, 64, 4)
+        got = {}
+        for label, d, m in (("cpu", "cpu", cpu_model),
+                            ("cuda", dev, gpu_model)):
+            opt = adamw(constant_lr(1e-3))
+            st = init_train_state(dict(m.named_parameters()), opt)
+            step = make_train_step(m, opt)
+            got[label] = []
+            for i in range(3):
+                st, met = step(st, batch_for(smoke, shape, step=i, device=d))
+                got[label].append(float(met["loss"]))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got["cuda"], got["cpu"]))
+        print(f"[train] {smoke.name} 3 steps card vs CPU: losses "
+              f"{[round(x, 6) for x in got['cuda']]}, max rel. diff "
+              f"{rel:.2e} (rtol {TRAIN_CPU_RTOL:g})")
+        check(rel <= TRAIN_CPU_RTOL, f"{smoke.name}: training losses on the "
+              f"card disagree with the CPU by {rel:.2e}")
+
+    # --- the reference's Markov-language recipe --------------------------------
+    cfg = get_config("deepseek-7b", smoke=True)
+    model = Transformer(cfg, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    opt = adamw(warmup_cosine(3e-3, 10, 60))
+    st = init_train_state(dict(model.named_parameters()), opt)
+    step = make_train_step(model, opt)
+    shape = ShapeConfig("t", ShapeKind.TRAIN, 64, 8)
+    losses = []
+    for i in range(25):
+        st, m = step(st, batch_for(cfg, shape, step=i, device=dev))
+        losses.append(float(m["loss"]))
+    bar = 0.85 * math.log(cfg.vocab_size)
+    print(f"[train] {cfg.name} Markov language, 25 steps: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (bar 0.85 ln V = {bar:.4f})")
+    check(losses[-1] < bar and losses[-1] < losses[0],
+          f"{cfg.name}: the loss did not drop below 0.85 ln V")
+
+    # --- elastic resume ---------------------------------------------------------
+    opt = adamw(constant_lr(1e-3))
+    step = make_train_step(model, opt)
+    p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    shape = ShapeConfig("t", ShapeKind.TRAIN, 32, 8)
+
+    def fresh():
+        return init_train_state({k: v.clone() for k, v in p0.items()}, opt)
+
+    def make_batch(i):
+        return batch_for(cfg, shape, step=i, device=dev)
+
+    s_ref = fresh()
+    for i in range(20):
+        s_ref, _ = step(s_ref, make_batch(i))
+    with tempfile.TemporaryDirectory() as root:
+        def failure(state):
+            restored = ckpt.restore(root, ckpt.latest_step(root), state,
+                                    device=dev)
+            return restored, step
+
+        s_run, _ = ElasticRunner(ckpt_root=root, save_every=10).run(
+            fresh(), 20, make_batch=make_batch, step_fn=step,
+            failures={12: failure})
+    err = max((s_run.params[k] - s_ref.params[k]).abs().max().item()
+              for k in p0)
+    print(f"[train] elastic resume: failed at 12, restored step 10, reached "
+          f"step {int(s_run.step)}; params vs the uninterrupted run "
+          f"max_abs_err {err:.3e} (atol {TRAIN_RESUME_ATOL:g})")
+    check(int(s_run.step) == 20 and err <= TRAIN_RESUME_ATOL,
+          "elastic resume does not reproduce the uninterrupted run")
+    del model, st, s_ref, s_run
+    torch.cuda.empty_cache()
+
+    # --- compressed data parallelism: 2 ranks over gloo ------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        records = spawn_world(TRAIN_DP_WORLD, tmp, str(dev), fn=train_rank,
+                              timeout_s=TRAIN_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        for mode in TRAIN_DP_MODES:
+            digests = {r[mode]["digest"] for r in records}
+            check(len(digests) == 1, f"{mode}: ranks end with different "
+                  f"parameters")
+            want, want_losses = dp_model(torch, dev, mode)
+            got = torch.load(f"{tmp}/world{TRAIN_DP_WORLD}/params_{mode}.pt")
+            err = max((got[k] - want[k]).abs().max().item() for k in want)
+            exact = all(torch.equal(got[k], want[k]) for k in want)
+            print(f"[train] compressed DP {mode}, {TRAIN_DP_WORLD} ranks "
+                  f"over gloo, {TRAIN_DP_STEPS} steps: losses "
+                  f"{[round(x, 6) for x in records[0][mode]['losses']]} "
+                  f"(in-process model {[round(x, 6) for x in want_losses]}),"
+                  f" parameters equal across ranks; vs the in-process model "
+                  f"of the per-rank arithmetic: max_abs_err {err:.3e}"
+                  f"{' (bit-identical)' if exact else ''}")
+            check(err <= TRAIN_RESUME_ATOL, f"{mode}: the ranks' parameters "
+                  f"disagree with the per-rank model")
+        print(f"[train] the world spawned, trained and joined in {wall:.1f} s")
+    no_launches("train smoke, Markov, resume, DP")
+    print("[train] kernel launches on the training paths: none")
+
+
 def main() -> None:
     args = sys.argv[1:]
     profile = "--profile" in args
@@ -2059,6 +2485,11 @@ def main() -> None:
     branches_phase(torch, dev, results, profile, seed, smi, drive, warm,
                    kernels_vs_plain)
     print(f"[chip_smoke] branches phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # --- phase 12: training -----------------------------------------------------
+    train_phase(torch, dev, results, smi, profile)
+    print(f"[chip_smoke] train phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # --- result lines ---------------------------------------------------------

@@ -1,0 +1,9 @@
+"""Atomic, resumable, device-independent checkpointing."""
+
+from repro_torch.checkpoint.store import (
+    latest_step,
+    restore,
+    restore_pytree,
+    save,
+    save_pytree,
+)

@@ -3,7 +3,8 @@
 The simplest correct implementations — dense masks, float32 math — that
 the CPU tests compare against and that ``chip_smoke.py`` holds each CUDA
 kernel against on the card. The wrappers in ``ops.py`` run these only for
-tensors that lie on the CPU.
+tensors that lie on the CPU. ``rmsnorm_ref``, the reference's jnp
+``rmsnorm``, is also the training path's norm (``models.train_paths``).
 """
 
 from __future__ import annotations

@@ -7,8 +7,12 @@ computes it in jnp outside any kernel; it writes the new key/value into the
 cache in place (the reference returns an updated copy), which keeps one
 cache buffer per layer alive instead of two. Whisper's cross attention
 (``cross_attention`` over the encoder memory's ``memory_kv``) takes the
-flash kernel with ``causal=False`` at prefill and at decode (Sq = 1), where
-the reference runs its jnp ``sdpa``.
+flash kernel with ``causal=False`` at prefill, where the reference runs its
+jnp ``sdpa``; a decode step's single query takes plain einsums.
+
+``sdpa`` is the reference's jnp attention, differentiable: the training
+path's attention (the flash kernel has no backward), dense or, with
+``block_q``, streamed over query blocks.
 """
 
 from __future__ import annotations
@@ -16,7 +20,9 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -70,6 +76,89 @@ def _rope(cfg: ModelConfig, q, k, positions):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k
+
+
+def _sdpa_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool, window: int | None = None,
+                q_offset: int = 0) -> torch.Tensor:
+    """Dense-mask attention (materialises the (Sq, Sk) scores), port of
+    ``src/repro/models/attention.py:62``: scores and softmax in float32,
+    the probabilities cast to q's dtype before the second einsum."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, D)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float()
+    scores = scores / math.sqrt(D)
+    q_pos = torch.arange(Sq, device=q.device) + q_offset
+    k_pos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        mask &= k_pos[None, :] > q_pos[:, None] - window
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(B, Sq, H, D)
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool, window: int | None = None, q_offset: int = 0,
+         block_q: int | None = None) -> torch.Tensor:
+    """Scaled dot-product attention with GQA broadcast, port of
+    ``src/repro/models/attention.py:86``. q (B,Sq,H,D); k/v (B,Sk,Hkv,D);
+    ``q_offset`` is the position of q[0] relative to k[0]; ``window`` keeps
+    keys in [pos - window + 1, pos].
+
+    The reference's branches, kept: a window of at least Sk is no window;
+    the dense form unless ``block_q`` is set, Sq > 2 block_q, block_q
+    divides Sq and q_offset == 0. Otherwise queries go through a loop over
+    blocks of ``block_q`` rows (the reference's ``lax.scan``): without a
+    window each block sees every key (the causal mask inside); with one,
+    the keys are padded in front by the window rounded up to a block and
+    each block sees a static span of ``pad + block_q`` of them."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    if window is not None and window >= Sk:
+        window = None  # SWA window covers the whole sequence: plain causal
+    if (block_q is None or Sq <= 2 * block_q or Sq % block_q
+            or q_offset != 0):
+        return _sdpa_dense(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset)
+
+    Hkv = k.shape[2]
+    groups = H // Hkv
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(D)))
+    pad = 0
+    if window is not None:
+        pad = ((window - 1 + block_q - 1) // block_q) * block_q
+        k = F.pad(k, (0, 0, 0, 0, pad, 0))
+        v = F.pad(v, (0, 0, 0, 0, pad, 0))
+    outs = []
+    for iq in range(Sq // block_q):
+        q0 = iq * block_q
+        if window is not None:
+            kb, vb = k[:, q0:q0 + pad + block_q], v[:, q0:q0 + pad + block_q]
+            k_pos = q0 - pad + torch.arange(pad + block_q, device=q.device)
+        else:
+            kb, vb = k, v
+            k_pos = torch.arange(Sk, device=q.device)
+        qg = q[:, q0:q0 + block_q].reshape(B, block_q, Hkv, groups, D)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kb).float() * scale
+        q_pos = q0 + torch.arange(block_q, device=q.device)
+        if window is not None:
+            m = ((k_pos[None, :] >= 0) & (k_pos[None, :] <= q_pos[:, None])
+                 & (k_pos[None, :] > q_pos[:, None] - window))
+        elif causal:
+            m = k_pos[None, :] <= q_pos[:, None]
+        else:
+            m = None
+        if m is not None:
+            s = s.masked_fill(~m, float("-inf"))
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, vb)
+        outs.append(o.reshape(B, block_q, H, D))
+    return torch.cat(outs, dim=1)
 
 
 def attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,

@@ -7,7 +7,9 @@ a bfloat16 model never holds a float32 copy of itself. Norm scales stay
 float32, as in the reference. Parameters keep the reference's leaf names
 and its (d_in, d_out) orientation, so ``x @ w`` reads as it does there and
 a converted JAX param tree loads leaf for leaf. Every RMSNorm goes through
-the kernel set it is given (the CUDA kernel on the card).
+the kernel set it is given (the CUDA kernel on the card when serving,
+the plain ``kernels.ref.rmsnorm_ref`` when training: the kernels have no
+backward).
 """
 
 from __future__ import annotations
@@ -174,3 +176,22 @@ def sinusoid_pos(seq: int, d: int, *, device) -> torch.Tensor:
     pos = np.arange(seq)[:, None] * inv[None, :]
     table = np.concatenate([np.sin(pos), np.cos(pos)], axis=1)
     return torch.as_tensor(table, device=device)
+
+
+# --- Losses -----------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token CE in float32. logits (B, S, V), labels (B, S): the
+    log-partition minus the gold logit (a gather, where the reference sums
+    a one-hot product: the same value, exactly), averaged over the tokens,
+    or over ``mask`` with the count floored at 1."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -5,8 +5,8 @@ The sequence mixer of the SSM family (``mamba2-780m``). Prefill runs the
 SSD scan through the kernel set it is given (the CUDA kernel on the card);
 the gated RMSNorm goes through the RMSNorm kernel like every norm. Decode
 stays plain torch ops, as the reference computes it in jnp outside any
-kernel. The reference's pure-jnp chunked scan (``ssd_chunked``) is not
-ported: the port's prefill always takes ``kernels.ssd_scan``.
+kernel. ``ssd_chunked``, the reference's pure-jnp chunked scan, is the
+training path's scan (the kernel has no backward).
 
 Quirks kept from the reference: prefill returns the conv tails in x's
 dtype, while ``init_ssm_state`` makes them bfloat16; one B/C group (G=1).
@@ -78,6 +78,69 @@ class Mamba2(nn.Module):
         self.dt_bias = nn.Parameter(dt0 + torch.log(-torch.expm1(-dt0)))
         self.norm_scale = nn.Parameter(torch.ones((di,), **f32))
         self.out_proj = dense_init(di, d, **kw)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
+                chunk: int, initial_state: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD scan, differentiable (port of
+    ``src/repro/models/mamba2.py:29``). Returns (y (B,S,H,P) in x's dtype,
+    final state (B,H,P,N) float32); S must be a multiple of ``chunk``.
+
+    Within a chunk the recurrence is the lower-triangular (L x L)
+    "attention" of the duality; a loop over chunks carries the state and
+    emits the state entering each chunk. All internal math in float32.
+    One change from the reference: the masked upper triangle takes
+    ``exp(-inf)`` where the reference takes ``where(tri, exp(seg), 0)``.
+    The values are the same, but there ``exp(seg)`` overflows once a
+    chunk's decay passes e^88 (mamba2-780m's chunk of 256 does) and its
+    gradient is then 0 * inf = NaN; here it is 0.
+    """
+    Bsz, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    if S % chunk:
+        raise ValueError(f"ssd_chunked: S={S} is not a multiple of the "
+                         f"chunk {chunk}")
+    nc, L = S // chunk, chunk
+    hpg = H // G
+
+    x_ = x.reshape(Bsz, nc, L, H, P).float()
+    dt_ = dt.reshape(Bsz, nc, L, H).float()
+    Br_ = B.reshape(Bsz, nc, L, G, N).float().repeat_interleave(hpg, dim=3)
+    Cr_ = C.reshape(Bsz, nc, L, G, N).float().repeat_interleave(hpg, dim=3)
+
+    a_cum = torch.cumsum(dt_ * A.float(), dim=2)  # (B,nc,L,H) log-decay
+
+    # intra-chunk: decay(i,j) = exp(a_cum[i] - a_cum[j]) for i >= j
+    seg = a_cum[:, :, :, None, :] - a_cum[:, :, None, :, :]  # (B,nc,L,L,H)
+    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(seg.masked_fill(~tri[None, None, :, :, None],
+                                      float("-inf")))
+    cb = torch.einsum("bcihs,bcjhs->bcijh", Cr_, Br_)
+    w = cb * decay * dt_[:, :, None, :, :]
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, x_)
+
+    # the state each chunk deposits, and each chunk's total decay
+    decay_to_end = torch.exp(a_cum[:, :, -1:, :] - a_cum)
+    chunk_state = torch.einsum("bclhs,bclhp->bchps", Br_,
+                               x_ * (dt_ * decay_to_end)[..., None])
+    chunk_decay = torch.exp(a_cum[:, :, -1, :])  # (B,nc,H)
+
+    state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32,
+                         device=x.device)
+             if initial_state is None else initial_state.float())
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + chunk_state[:, c]
+    prev_states = torch.stack(entering, dim=1)  # (B,nc,H,P,N)
+
+    y_inter = torch.einsum("bclhs,bchps->bclhp", Cr_, prev_states)
+    y_inter = y_inter * torch.exp(a_cum)[..., None]
+    y = (y_intra + y_inter).reshape(Bsz, S, H, P)
+    y = y + x.float() * D.float()[None, None, :, None]
+    return y.to(x.dtype), state
 
 
 def _conv_with_tail(seq: torch.Tensor, tail: torch.Tensor | None,

@@ -14,9 +14,18 @@ over the encoder memory, then a dense SwiGLU (fc-GELU-fc when
 the cross attention, the SSD scan, the expert FF and every RMSNorm go
 through the CUDA kernels (their plain versions on CPU tensors); the expert
 FF does in decode too, while a decode step's single query (self and cross
-attention) takes plain einsums. Only ``prefill`` takes
-another kernel set, so that a check can hold it against the plain versions
-on the card; ``forward`` and ``decode_step`` always use the kernels.
+attention) takes plain einsums. ``prefill`` also takes another kernel
+set, so that a check can hold it against the plain versions on the card;
+``forward`` and ``decode_step`` always use the kernels.
+
+Training (``forward_train``, ``loss_fn``) runs with autograd on through
+``train_paths(cfg)``, the reference's ``use_pallas=False`` functions:
+blocked ``sdpa``, ``ssd_chunked``, the einsum expert FF and the plain
+RMSNorm. The kernels have no backward (nor have the reference's), and
+their outputs carry no gradient, so no training call reaches them. Remat
+applies per super-block of ``block_period(cfg)`` layers, as the
+reference's ``lax.scan`` step; its ``act_spec`` and ``scan_unroll`` are
+GSPMD and scan knobs with no eager counterpart.
 
 The stub frontends arrive as inputs, as in the reference: qwen2-vl's
 ``patch_embeds`` (B, P, d) replace the first P token embeddings, and
@@ -32,6 +41,7 @@ learned position table is read ``% its size``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Union
 
@@ -42,6 +52,7 @@ from torch import nn
 
 from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ref
 from repro_torch.kernels.ops import KERNELS, KernelSet
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import KVCache
@@ -49,6 +60,7 @@ from repro_torch.models.layers import (
     MLP,
     GeluMLP,
     RMSNorm,
+    cross_entropy,
     dense_init,
     embed_init,
     sinusoid_pos,
@@ -58,8 +70,10 @@ from repro_torch.models.mamba2 import (
     SSMState,
     mamba_decode_step,
     mamba_forward,
+    ssd_chunked,
 )
 from repro_torch.models.moe import MoE
+from repro_torch.models.remat import wrap_remat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +135,34 @@ def kernel_launches(cfg: ModelConfig, decode_steps: int = 0) -> dict:
             * passes + (2 * n_enc + 1 if n_enc else 0)}
 
 
+def _train_attention(q, k, v, *, causal: bool = True,
+                     window: int | None = None, block_q: int | None = None):
+    """The training path's attention slot: ``sdpa``, blocked by
+    ``block_q`` for the causal self-attention only, as the reference
+    passes ``cfg.attn_block_q`` there and not to the encoder's or the
+    cross attention (both ``causal=False``)."""
+    return attn_mod.sdpa(q, k, v, causal=causal, window=window,
+                         block_q=block_q if causal else None)
+
+
+def _expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The training path's expert FF slot: the reference's einsum in the
+    parameter dtype, on the (E, G*C, d) layout."""
+    return torch.einsum("ecd,edf->ecf", x, w)
+
+
+def train_paths(cfg: ModelConfig) -> KernelSet:
+    """The reference's ``use_pallas=False`` functions, differentiable, in
+    the kernel set's slots: blocked ``sdpa`` (``cfg.attn_block_q``),
+    ``ssd_chunked``, the einsum expert FF and the jnp RMSNorm
+    (``kernels.ref.rmsnorm_ref``, the same function)."""
+    return KernelSet(
+        flash_attention=functools.partial(_train_attention,
+                                          block_q=cfg.attn_block_q),
+        rmsnorm=ref.rmsnorm_ref, ssd_scan=ssd_chunked,
+        grouped_matmul=_expert_matmul)
+
+
 @dataclasses.dataclass
 class DecodeState:
     """One cache per layer (a KVCache for attention, an SSMState for
@@ -174,15 +216,29 @@ class DecoderLayer(nn.Module):
         return x + attn_mod.cross_attention(self.cross, self.cfg, h, mkv,
                                             kernels)
 
-    def feed_forward(self, x: torch.Tensor,
-                     kernels: KernelSet = KERNELS) -> torch.Tensor:
-        """x + the layer's FF of norm2(x) (x itself when it has none)."""
+    def feed_forward(self, x: torch.Tensor, kernels: KernelSet = KERNELS
+                     ) -> tuple[torch.Tensor, torch.Tensor | float]:
+        """(x + the layer's FF of norm2(x), the MoE aux loss); x itself and
+        0 when it has none."""
         if self.kind.ff == "dense":
-            return x + self.ff(self.norm2(x, kernels))
+            return x + self.ff(self.norm2(x, kernels)), 0.0
         if self.kind.ff == "moe":
-            y, _ = self.moe(self.norm2(x, kernels), kernels)
-            return x + y
-        return x
+            y, aux = self.moe(self.norm2(x, kernels), kernels)
+            return x + y, aux
+        return x, 0.0
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, mkv,
+                kernels: KernelSet = KERNELS
+                ) -> tuple[torch.Tensor, torch.Tensor | float]:
+        """One pre-norm layer over the whole sequence: (x, MoE aux)."""
+        h = self.norm1(x, kernels)
+        if self.kind.mixer == "attn":
+            y, _, _ = attn_mod.attention(self.attn, self.cfg, h, positions,
+                                         kernels)
+        else:
+            y, _ = mamba_forward(self.mamba, self.cfg, h, kernels=kernels)
+        return self.feed_forward(self.cross_attend(x + y, mkv, kernels),
+                                 kernels)
 
 
 def _kv_to_ring(k: torch.Tensor, buf: int) -> torch.Tensor:
@@ -325,20 +381,53 @@ class Transformer(nn.Module):
                 positions: torch.Tensor | None = None,
                 patch_embeds: torch.Tensor | None = None,
                 encoder_frames: torch.Tensor | None = None) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, V). ``positions``: rotary
-        positions (B, S), or (3, B, S) under M-RoPE (default arange);
-        ``patch_embeds`` (B, P, d); ``encoder_frames`` (B, S_enc, d)."""
+        """tokens (B, S) -> logits (B, S, V) through the kernels.
+        ``positions``: rotary positions (B, S), or (3, B, S) under M-RoPE
+        (default arange); ``patch_embeds`` (B, P, d); ``encoder_frames``
+        (B, S_enc, d)."""
+        logits, _ = self.forward_train(
+            tokens, positions=positions, patch_embeds=patch_embeds,
+            encoder_frames=encoder_frames, kernels=KERNELS)
+        return logits
+
+    def forward_train(self, tokens: torch.Tensor, *,
+                      positions: torch.Tensor | None = None,
+                      patch_embeds: torch.Tensor | None = None,
+                      encoder_frames: torch.Tensor | None = None,
+                      remat: str = "none",
+                      kernels: KernelSet | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward with autograd on, port of the reference's
+        ``forward``: (logits (B, S, V), the summed MoE aux loss). The
+        layers run in super-blocks of ``block_period(cfg)``, each wrapped
+        by the ``remat`` policy (``repro_torch.models.remat``); ``kernels``
+        defaults to ``train_paths(cfg)``."""
+        cfg = self.cfg
+        kernels = kernels or train_paths(cfg)
         positions = self._positions(tokens, positions)
         x = self._embed(tokens, patch_embeds=patch_embeds)
-        cross_kv = self._memory_kv(encoder_frames, KERNELS)
-        for layer, mkv in zip(self.layers, cross_kv):
-            h = layer.norm1(x)
-            if layer.kind.mixer == "attn":
-                y, _, _ = attn_mod.attention(layer.attn, self.cfg, h, positions)
-            else:
-                y, _ = mamba_forward(layer.mamba, self.cfg, h)
-            x = layer.feed_forward(layer.cross_attend(x + y, mkv))
-        return self._logits(x)
+        memory = None
+        if cfg.is_encoder_decoder:
+            if encoder_frames is None:
+                raise ValueError(f"{cfg.name} needs encoder_frames")
+            memory = self.encoder(encoder_frames, kernels)
+        period = block_period(cfg)
+
+        def superblock(x, memory, first):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for layer in self.layers[first:first + period]:
+                mkv = (None if memory is None
+                       else attn_mod.memory_kv(layer.cross, cfg, memory))
+                x, a = layer(x, positions, mkv, kernels)
+                aux = aux + a
+            return x, aux
+
+        superblock = wrap_remat(superblock, remat)
+        auxes = []
+        for first in range(0, len(self.layers), period):
+            x, aux = superblock(x, memory, first)
+            auxes.append(aux)
+        return self._logits(x, kernels), torch.stack(auxes).sum()
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, *, max_seq: int,
@@ -370,8 +459,8 @@ class Transformer(nn.Module):
             else:
                 y, st = mamba_forward(layer.mamba, cfg, h, kernels=kernels)
                 caches.append(st)
-            x = layer.cross_attend(x + y, mkv, kernels)
-            x = layer.feed_forward(x, kernels)
+            x, _ = layer.feed_forward(layer.cross_attend(x + y, mkv, kernels),
+                                      kernels)
         return self._logits(x, kernels), DecodeState(caches=caches, step=S,
                                                      cross_kv=cross_kv)
 
@@ -392,26 +481,83 @@ class Transformer(nn.Module):
             else:
                 y, cache = mamba_decode_step(layer.mamba, self.cfg, h, cache)
             caches.append(cache)
-            x = layer.feed_forward(layer.cross_attend(x + y, mkv))
+            x, _ = layer.feed_forward(layer.cross_attend(x + y, mkv))
         return self._logits(x), DecodeState(caches=caches, step=state.step + 1,
                                             cross_kv=cross_kv)
 
 
+def loss_fn(model: Transformer, batch: dict, *, remat: str = "none",
+            aux_weight: float = 0.01) -> tuple[torch.Tensor, dict]:
+    """Next-token CE + ``aux_weight`` x the MoE aux loss, port of the
+    reference's ``loss_fn``. ``batch``: ``tokens``/``labels`` (B, S), and
+    optionally ``positions``, ``patch_embeds``, ``encoder_frames``,
+    ``mask``. Returns (loss, {"loss", "ce", "moe_aux"})."""
+    logits, aux = model.forward_train(
+        batch["tokens"], positions=batch.get("positions"),
+        patch_embeds=batch.get("patch_embeds"),
+        encoder_frames=batch.get("encoder_frames"), remat=remat)
+    ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    loss = ce + aux_weight * aux
+    return loss, {"loss": loss, "ce": ce, "moe_aux": aux}
+
+
+def count_params(params) -> int:
+    """Elements of a module's parameters or of a dict of tensors."""
+    leaves = params.values() if isinstance(params, dict) else \
+        params.parameters()
+    return sum(p.numel() for p in leaves)
+
+
+def param_bytes(params) -> int:
+    leaves = params.values() if isinstance(params, dict) else \
+        params.parameters()
+    return sum(p.numel() * p.element_size() for p in leaves)
+
+
+def jax_tree_names(cfg: ModelConfig, tree: dict) -> dict:
+    """A tree shaped like the reference's ``init_params`` (its params, or
+    their gradients or AdamW moments) as {port parameter name: leaf}.
+
+    A name map plus unstacking: ``tree["blocks"][j]`` holds sub-layer
+    position j of every super-block stacked on a leading axis, so its
+    entry s is layer ``s * period + j``; whisper's
+    ``tree["encoder"]["blocks"]`` stacks the encoder layers, entry s being
+    ``encoder.blocks.s``."""
+    period = block_period(cfg)
+    out: dict = {}
+
+    def leaves(sub: dict, prefix: str = ""):
+        for key, val in sub.items():
+            if isinstance(val, dict):
+                yield from leaves(val, f"{prefix}{key}.")
+            else:
+                yield f"{prefix}{key}", val
+
+    def unstack(sub: dict, name_of) -> None:
+        for name, stacked in leaves(sub):
+            for s in range(np.shape(stacked)[0]):
+                out[name_of(s, name)] = stacked[s]
+
+    encoder = dict(tree.get("encoder", {}))
+    out.update(leaves({k: v for k, v in tree.items()
+                       if k not in ("blocks", "encoder")}))
+    for j, block in enumerate(tree["blocks"]):
+        unstack(block, lambda s, name: f"layers.{s * period + j}.{name}")
+    if "blocks" in encoder:
+        unstack(encoder.pop("blocks"),
+                lambda s, name: f"encoder.blocks.{s}.{name}")
+    out.update(leaves(encoder, "encoder."))
+    return out
+
+
 def load_jax_params(model: Transformer, params: dict) -> Transformer:
     """Copy a reference ``init_params`` tree (leaves already numpy, e.g.
-    ``jax.tree.map(np.asarray, params)``) into ``model``.
-
-    A name map plus unstacking: ``params["blocks"][j]`` holds sub-layer
-    position j of every super-block stacked on a leading axis, so its entry
-    s is layer ``s * period + j``; whisper's ``params["encoder"]["blocks"]``
-    stacks the encoder layers, entry s being ``encoder.blocks.s``. Raises
-    if a leaf has no parameter, a parameter gets no leaf, or a shape
-    differs.
+    ``jax.tree.map(np.asarray, params)``) into ``model``, by
+    ``jax_tree_names``. Raises if a leaf has no parameter, a parameter
+    gets no leaf, or a shape differs.
     """
-    period = block_period(model.cfg)
     assigned: set[str] = set()
-
-    def put(name: str, leaf) -> None:
+    for name, leaf in jax_tree_names(model.cfg, params).items():
         try:
             p = model.get_parameter(name)
         except AttributeError:
@@ -425,30 +571,6 @@ def load_jax_params(model: Transformer, params: dict) -> Transformer:
         with torch.no_grad():
             p.copy_(t.to(p.dtype))
         assigned.add(name)
-
-    def leaves(tree: dict, prefix: str = ""):
-        for key, val in tree.items():
-            if isinstance(val, dict):
-                yield from leaves(val, f"{prefix}{key}.")
-            else:
-                yield f"{prefix}{key}", val
-
-    def unstack(tree: dict, name_of) -> None:
-        for name, stacked in leaves(tree):
-            for s in range(np.shape(stacked)[0]):
-                put(name_of(s, name), stacked[s])
-
-    encoder = dict(params.get("encoder", {}))
-    for name, leaf in leaves({k: v for k, v in params.items()
-                              if k not in ("blocks", "encoder")}):
-        put(name, leaf)
-    for j, block in enumerate(params["blocks"]):
-        unstack(block, lambda s, name: f"layers.{s * period + j}.{name}")
-    if "blocks" in encoder:
-        unstack(encoder.pop("blocks"),
-                lambda s, name: f"encoder.blocks.{s}.{name}")
-    for name, leaf in leaves(encoder, "encoder."):
-        put(name, leaf)
     missing = {n for n, _ in model.named_parameters()} - assigned
     if missing:
         raise ValueError(f"parameters without a reference leaf: {sorted(missing)}")

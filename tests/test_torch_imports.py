@@ -36,7 +36,11 @@ def test_port_files_found():
     assert {"src/repro_torch/kernels/ops.py", "src/repro_torch/kernels/ref.py",
             "src/repro_torch/models/mamba2.py", "src/repro_torch/models/moe.py",
             "src/repro_torch/models/transformer.py",
-            "src/repro_torch/launch/serve.py", "chip_smoke.py"} <= names
+            "src/repro_torch/launch/serve.py", "chip_smoke.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/train/train_step.py",
+            "src/repro_torch/data/threefry.py",
+            "src/repro_torch/checkpoint/store.py"} <= names
     assert len(FILES) > 20
 
 
