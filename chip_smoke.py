@@ -160,6 +160,24 @@ Phases (any failure ends the script with a non-zero exit):
    parameters, equal to an in-process model of the per-rank arithmetic.
    The training path runs no kernel (the kernels have no backward, nor
    have the reference's): the launch counters must not move.
+13. ``[dryrun]``: ``python -m repro_torch.launch.dryrun --all
+   --both-meshes`` in a spawned process (8 worker processes over the
+   (arch, shape) pairs, meta tensors over fake process groups of 256 and
+   512 ranks): one row per cell of the ten full configs x four shapes x
+   both production meshes, 0 failures, SKIPs exactly where
+   ``cell_supported`` puts them, every cell's FLOPs equal to the closed
+   form ``flop_terms`` (printed term by term) and the phase's time. Then
+   danube-1.8b f32 at (4, 512), remat dots: FlopCounterMode over one
+   real step on the card equals the meta count (and the closed form;
+   ``train_flops`` beside it), and ``state_bytes_per_device`` on a
+   (1, 1) mesh over NCCL equals the live ``TrainState`` plus the step's
+   gradients, printed beside ``[train]``'s peak (the gap: activations).
+14. ``[examples]``: ``launch.quickstart``, ``launch.lm_design_space``,
+   ``launch.fault_tolerant_training`` and ``launch.carbon_aware_training``
+   (its default 300 steps of (8, 128), an 80M-parameter model) with
+   ``--device cuda``, each against a CPU run: decisions and ledgers card
+   == CPU, losses finite and falling, the launch counters 0 around each
+   training run.
 
 The second-last line is one JSON object ``{"kernels": [...]}`` with each
 kernel's launches on the served paths (none on the training path),
@@ -1610,8 +1628,10 @@ def train_flops(model, cfg, batch: int, seq: int) -> int:
     head once more over the decoder's tokens; the encoder's weights and
     the cross attention's K/V over the encoder's), plus 3 x 4 H D per
     visible (query, key) pair of every attention. Lookups, norms, biases,
-    the depthwise convolutions, the SSD scan's chunk algebra (under 1% at
-    mamba2's width) and elementwise work count nothing."""
+    the depthwise convolutions, the SSD scan and elementwise work count
+    nothing: mamba2's token recurrence (5 P N a token and head) would add
+    ~6% of its weight term, the chunked form the model runs at chunk 256
+    19% (``launch.dryrun.flop_terms``' ``ssd_chunks``)."""
     enc = cfg.encoder_seq if cfg.is_encoder_decoder else 0
     dec_tok, enc_tok = batch * seq, batch * enc
     mm = 0
@@ -1754,7 +1774,7 @@ def dp_model(torch, dev, mode: str) -> tuple[dict, list]:
 
 
 def train_phase(torch, dev, results, card: str,
-                profile: bool = False) -> None:
+                profile: bool = False) -> dict:
     """Phase 12, ``[train]``: full-width training through the launcher,
     the remat and microbatch equivalences, card == CPU on the six smoke
     configs, the reference's Markov-language recipe, elastic resume and
@@ -1792,6 +1812,7 @@ def train_phase(torch, dev, results, card: str,
         for name, r in results.items():
             r["launches_by_path"][label] = counts[name]
 
+    peaks = {}
     print(f"[train] torch {torch.__version__}; selective checkpointing: "
           f"{hasattr(torch.utils.checkpoint, 'create_selective_checkpoint_contexts')}")
 
@@ -1810,6 +1831,7 @@ def train_phase(torch, dev, results, card: str,
                           "--remat", remat, "--lr", "1e-4", "--warmup", "2",
                           "--log-every", str(TRAIN_STEPS)])
         peak = torch.cuda.max_memory_allocated()
+        peaks[(arch, batch, seq)] = peak
         no_launches(label)
         losses = [h["loss"] for h in run.history]
         gnorms = [h["grad_norm"] for h in run.history]
@@ -1983,6 +2005,266 @@ def train_phase(torch, dev, results, card: str,
         print(f"[train] the world spawned, trained and joined in {wall:.1f} s")
     no_launches("train smoke, Markov, resume, DP")
     print("[train] kernel launches on the training paths: none")
+    return peaks
+
+
+# --- [dryrun]: shape, sharding and FLOP accounting ------------------------
+DRYRUN_WORKERS = 8
+DRYRUN_TIMEOUT_S = 300
+DRYRUN_CARD = (DANUBE, 4, 512, "dots")  # [train]'s first run
+
+
+def dryrun_phase(torch, dev, card: str, peaks: dict) -> None:
+    """Phase 13, ``[dryrun]``: the reference's dry-run matrix on the port.
+    ``python -m repro_torch.launch.dryrun --all --both-meshes`` in a
+    spawned process (a pool of ``DRYRUN_WORKERS`` over the (arch, shape)
+    pairs, each mesh in a fake world of 256 or 512 ranks, meta tensors):
+    one row per cell, 0 failures, SKIPs exactly where ``cell_supported``
+    puts them, every cell's FLOPs equal to ``flop_terms``' closed form.
+    Then the accounting is grounded on the card for danube-1.8b f32 at
+    (4, 512), remat dots: FlopCounterMode over one real step equals the
+    meta count, and ``state_bytes_per_device`` on a (1, 1) mesh over NCCL
+    equals the live ``TrainState`` plus the step's gradients; the step's
+    peak memory and ``[train]``'s beside it, the gap being activations."""
+    import dataclasses
+    import datetime
+    import os
+    import signal
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import (ARCH_IDS, SHAPE_IDS, cell_supported,
+                                     get_config, get_shape)
+    from repro_torch.configs.base import ShapeConfig, ShapeKind
+    from repro_torch.data import batch_for
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import Transformer
+    from repro_torch.train import adamw, constant_lr, init_train_state
+    from repro_torch.train.train_step import grads_over_microbatches
+
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        out = os.path.join(tmp, "matrix.json")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--both-meshes", "--workers", str(DRYRUN_WORKERS), "--json",
+             out], cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True)
+        try:
+            text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            fail(f"the dry run outlived {DRYRUN_TIMEOUT_S} s")
+        wall = time.perf_counter() - t0
+        rows = [r for r in text.splitlines()
+                if r.split(" ", 1)[0] in ARCH_IDS]
+        for r in rows:
+            print(f"[dryrun] {r}")
+        check(proc.returncode == 0, f"the dry run failed (exit "
+              f"{proc.returncode}):\n{text[-3000:]}")
+        with open(out) as f:
+            cells = json.load(f)
+    check(len(cells) == 2 * len(ARCH_IDS) * len(SHAPE_IDS),
+          f"{len(cells)} cells, not the full matrix")
+    n_skip = 0
+    for c in cells:
+        ok, why = cell_supported(get_config(c["arch"]), get_shape(c["shape"]))
+        check(c["ok"] == ok and (ok or c["error"] == "SKIP: " + why),
+              f"{c['arch']} {c['shape']} {c['mesh']}: {c['error']}")
+        n_skip += not ok
+    print(f"[dryrun] {len(cells)} cells on 16x16 and 2x16x16, 0 failures, "
+          f"{n_skip} SKIPs as cell_supported puts them, in {wall:.1f} s "
+          f"({DRYRUN_WORKERS} processes) [{card}]")
+    for c in cells:
+        if not c["ok"] or c["mesh"] != "16x16":
+            continue
+        cfg, shape = get_config(c["arch"]), get_shape(c["shape"])
+        terms = dryrun.flop_terms(cfg, shape)
+        check(sum(terms.values()) == c["flops"],
+              f"{c['arch']} {c['shape']}: count {c['flops']:.6e} is not "
+              f"the closed form {sum(terms.values()):.6e} {terms}")
+        print(f"[dryrun] {c['arch']} {c['shape']}: {c['flops']:.6e} FLOPs "
+              f"= closed form " + ", ".join(
+                  f"{k} {v:.4e}" for k, v in terms.items() if v))
+
+    # --- the card: one real step against the meta count -------------------
+    arch, batch, seq, remat = DRYRUN_CARD
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    shape = ShapeConfig("card", ShapeKind.TRAIN, seq, batch)
+    meta_flops = dryrun.count_flops(cfg, shape, remat=remat)
+    torch.cuda.empty_cache()
+    model = Transformer(cfg, device=dev, dtype=torch.float32,
+                        generator=torch.Generator(dev).manual_seed(0))
+    state = init_train_state(dict(model.named_parameters()),
+                             adamw(constant_lr(1e-4)))
+    b = batch_for(cfg, shape, step=0, device=dev)
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        grads, _ = grads_over_microbatches(model, state.params, b,
+                                           remat=remat)
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated()
+    check(not any(ops.LAUNCHES.values()), "the counted step launched kernels")
+    card_flops = fc.get_total_flops()
+    closed = sum(dryrun.flop_terms(cfg, shape, remat=remat).values())
+    bound = train_flops(model, cfg, batch, seq)
+    print(f"[dryrun] {arch} f32 ({batch}, {seq}) remat {remat}: one step on "
+          f"the card {card_flops:.6e} FLOPs, meta count {meta_flops:.6e}, "
+          f"closed form {closed:.6e}; train_flops {bound:.6e} "
+          f"({card_flops / bound:.3f}x)")
+    check(card_flops == meta_flops == closed,
+          "the card step's FLOPs differ from the meta count")
+
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
+    live = (nbytes(state.params.values()) + nbytes(state.opt.mu.values())
+            + nbytes(state.opt.nu.values()) + nbytes([state.opt.count]))
+    live_grads = nbytes(grads.values())
+    del grads
+    torch.cuda.set_device(dev.index or 0)
+    with tempfile.TemporaryDirectory(prefix="dryrun-nccl-") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = make_mesh(1, 1, device="cuda")
+            dry = dryrun.state_bytes_per_device(cfg, shape, mesh)
+        finally:
+            dist.destroy_process_group()
+    train_peak = peaks.get((arch, batch, seq))
+    print(f"[dryrun] {arch} f32 on a (1, 1) mesh over NCCL: "
+          f"state_bytes_per_device {dry / 1e9:.4f} GB = live TrainState "
+          f"{live / 1e9:.4f} GB + the step's gradients {live_grads / 1e9:.4f}"
+          f" GB; the step's peak {step_peak / 1e9:.2f} GB, [train]'s "
+          f"{train_peak / 1e9:.2f} GB: activations and temporaries "
+          f"{(train_peak - dry) / 1e9:.2f} GB [{card}]")
+    check(dry == live + live_grads, "state_bytes_per_device differs from "
+          "the live state and gradients")
+    del model, state
+    torch.cuda.empty_cache()
+
+
+# --- [examples]: the user entry points ----------------------------------------
+EXAMPLES_RTOL = 1e-5
+
+
+def examples_phase(torch, dev, card: str) -> None:
+    """Phase 14, ``[examples]``: ``launch.quickstart``,
+    ``launch.lm_design_space``, ``launch.fault_tolerant_training`` and
+    ``launch.carbon_aware_training`` (its default 300 steps of (8, 128))
+    with ``--device cuda``, each also on the CPU: decisions and ledgers
+    card == CPU (integers exact, carbon within rtol 1e-5); the
+    fault-tolerant runs from the same weights, their first loss within
+    ``TRAIN_CPU_RTOL``; the training runs' losses finite and falling; the
+    launch counters 0 around each training run."""
+    import math
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import (carbon_aware_training,
+                                    fault_tolerant_training, lm_design_space,
+                                    quickstart)
+    from repro_torch.models import Transformer
+
+    def close(a, b):
+        return np.allclose(a, b, rtol=EXAMPLES_RTOL, atol=0)
+
+    def same_ledger(got, want, label):
+        check(len(got) == len(want) and all(
+            (g.hour, g.pod, g.action, g.steps) == (w.hour, w.pod, w.action,
+                                                   w.steps)
+            and close([g.dp_frac, g.op_g, g.emb_g, g.ci],
+                      [w.dp_frac, w.op_g, w.emb_g, w.ci])
+            for g, w in zip(got, want)), f"{label}: ledgers differ card vs "
+            "CPU")
+
+    t0 = time.perf_counter()
+    q = {d: quickstart.main(["--device", d]) for d in ("cuda", "cpu")}
+    check(q["cuda"].picks == q["cpu"].picks
+          and q["cuda"].optimal == q["cpu"].optimal
+          and close(q["cuda"].total_cf, q["cpu"].total_cf),
+          "quickstart: card and CPU differ")
+    print(f"[examples] quickstart card == CPU: {q['cuda'].n_points} cells, "
+          f"picks equal, ResNet-50 carbon within rtol {EXAMPLES_RTOL:g} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    lm = {d: lm_design_space.main(["--device", d]) for d in ("cuda", "cpu")}
+    for g, w in zip(lm["cuda"], lm["cpu"]):
+        check(g.name == w.name and g.derived == w.derived,
+              f"{g.name}: card {g.derived} vs CPU {w.derived}")
+        if "ledger" in g.values:
+            same_ledger(g.values["ledger"], w.values["ledger"], g.name)
+            check(close(g.values["aware_g"], w.values["aware_g"]),
+                  f"{g.name}: carbon differs")
+    print(f"[examples] lm_design_space card == CPU: {len(lm['cuda'])} rows; "
+          f"route {np.mean([r.us_per_call for r in lm['cuda'][:10]]):.1f} "
+          f"us/call on the card, "
+          f"{np.mean([r.us_per_call for r in lm['cpu'][:10]]):.1f} on the "
+          f"CPU ({time.perf_counter() - t0:.1f} s)")
+
+    # both runs from the same weights, drawn on the CPU
+    params = {k: v.detach() for k, v in Transformer(
+        fault_tolerant_training.CFG, device="cpu",
+        generator=torch.Generator().manual_seed(0)).named_parameters()}
+    runs = {}
+    for d in ("cuda", "cpu"):
+        with tempfile.TemporaryDirectory(prefix="ft-") as root:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            runs[d] = fault_tolerant_training.main(
+                ["--device", d, "--ckpt-dir", root], params=params)
+            runs[d].wall = time.perf_counter() - t0
+            check(not any(ops.LAUNCHES.values()),
+                  "fault-tolerant training launched kernels")
+    losses = {d: [m["loss"] for m in r.phase1 + r.phase2]
+              for d, r in runs.items()}
+    alive = {d: [m["n_alive"] for m in r.phase1] for d, r in runs.items()}
+    check(alive["cuda"] == alive["cpu"] and runs["cuda"].restored
+          == runs["cpu"].restored == 12 and int(runs["cuda"].state.step)
+          == 20, "fault-tolerant training: masks or restart differ")
+    check(all(map(math.isfinite, losses["cuda"]))
+          and losses["cuda"][-1] < losses["cuda"][0],
+          f"fault-tolerant losses do not fall: {losses['cuda']}")
+    rel = [abs(a / b - 1) for a, b in zip(losses["cuda"], losses["cpu"])]
+    check(rel[0] <= TRAIN_CPU_RTOL, f"fault-tolerant training: the first "
+          f"step's loss card vs CPU differs by {rel[0]:.2e}")
+    print(f"[examples] fault_tolerant_training: masks and restart card == "
+          f"CPU, loss {losses['cuda'][0]:.4f} -> {losses['cuda'][-1]:.4f} "
+          f"over 20 steps from the same weights (rel. diff to the CPU run: "
+          f"first step {rel[0]:.2e}, at most {max(rel):.2e}); "
+          f"{runs['cuda'].wall:.1f} s on the card, {runs['cpu'].wall:.1f} s "
+          f"on the CPU; 0 launches")
+
+    with tempfile.TemporaryDirectory(prefix="ca-") as root:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        ca = carbon_aware_training.main(["--device", "cuda", "--ckpt", root])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(not any(ops.LAUNCHES.values()),
+              "carbon-aware training launched kernels")
+    tr = carbon_aware_training.trainer(300, "cpu")
+    same_ledger(ca.ledger, tr.run(total_steps=300, start_hour=6),
+                "carbon_aware_training")
+    check(len(ca.losses) == 300 and all(map(math.isfinite, ca.losses))
+          and ca.losses[-1] < ca.losses[0],
+          f"carbon-aware losses: {ca.losses[:3]} ... {ca.losses[-3:]}")
+    print(f"[examples] carbon_aware_training: 300 steps of (8, 128) on the "
+          f"card, ledger of {len(ca.ledger)} hours card == CPU, "
+          f"{ca.aware_g / 1e3:.2f} kg vs always-on {ca.base_g / 1e3:.2f} kg, "
+          f"loss {ca.losses[0]:.3f} -> {ca.losses[-1]:.3f}, {wall:.1f} s "
+          f"with checkpoints; 0 launches [{card}]")
 
 
 def main() -> None:
@@ -2488,8 +2770,18 @@ def main() -> None:
           f"{time.perf_counter() - t_start:.1f} s")
 
     # --- phase 12: training -----------------------------------------------------
-    train_phase(torch, dev, results, smi, profile)
+    peaks = train_phase(torch, dev, results, smi, profile)
     print(f"[chip_smoke] train phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # --- phase 13: the dry run's accounting, grounded on the card ----------------
+    dryrun_phase(torch, dev, smi, peaks)
+    print(f"[chip_smoke] dryrun phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # --- phase 14: the user entry points ----------------------------------------
+    examples_phase(torch, dev, smi)
+    print(f"[chip_smoke] examples phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # --- result lines ---------------------------------------------------------

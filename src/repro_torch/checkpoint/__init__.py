@@ -2,6 +2,7 @@
 
 from repro_torch.checkpoint.store import (
     latest_step,
+    prune,
     restore,
     restore_pytree,
     save,

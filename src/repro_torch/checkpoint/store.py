@@ -163,6 +163,15 @@ def latest_step(root: str) -> int | None:
     return max(steps) if steps else None
 
 
+def prune(root: str, keep: int) -> None:
+    """Delete all but the newest ``keep`` complete checkpoints in
+    ``root``."""
+    steps = sorted(int(m.group(1)) for m in map(_STEP_RE.match,
+                                                 os.listdir(root)) if m)
+    for step in steps[:-keep] if keep > 0 else steps:
+        shutil.rmtree(os.path.join(root, f"step_{step}"))
+
+
 def restore(root: str, step: int, template,
             device: str | torch.device | None = None):
     return restore_pytree(os.path.join(root, f"step_{step}"), template,

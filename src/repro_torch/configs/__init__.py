@@ -1,8 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> exact published config.
 
-A copy of the reference registry (``src/repro/configs``) without
-``specs.py``: the shape-struct helpers there lower through the JAX model
-code and arrive with the rest of the zoo.
+A copy of the reference registry (``src/repro/configs``); its
+``specs.py`` helpers build meta tensors through the port's model.
 """
 
 from repro_torch.configs.base import (
@@ -60,5 +59,14 @@ def all_cells() -> list[tuple[str, str]]:
     """All 40 (arch x shape) cells of the assignment."""
     return [(a, s) for a in ARCH_IDS for s in SHAPE_IDS]
 
+
+from repro_torch.configs.specs import (  # noqa: E402  (imports the models lazily)
+    batch_specs,
+    cell_supported,
+    decode_specs,
+    max_positions_for,
+    meta_model,
+    param_specs,
+)
 
 __all__ = [k for k in dir() if not k.startswith("_")]

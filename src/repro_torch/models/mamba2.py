@@ -240,9 +240,11 @@ def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def mamba_decode_step(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
-                      state: SSMState) -> tuple[torch.Tensor, SSMState]:
+                      state: SSMState, kernels: KernelSet = KERNELS
+                      ) -> tuple[torch.Tensor, SSMState]:
     """One-token mamba step. x (B,1,d_model). Plain torch ops, as the
-    reference's decode; the gated norm goes through the RMSNorm kernel."""
+    reference's decode; the gated norm goes through the kernel set's
+    RMSNorm."""
     Bsz = x.shape[0]
     di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     G = 1
@@ -271,7 +273,7 @@ def mamba_decode_step(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     A = -torch.exp(p.A_log)
     y, new_ssm = ssd_decode_step(xs, dt_act, A, Bmat, Cmat, p.D, state.ssm)
     y = y.reshape(Bsz, 1, di)
-    y = KERNELS.rmsnorm(y * F.silu(z)[:, None, :], p.norm_scale,
+    y = kernels.rmsnorm(y * F.silu(z)[:, None, :], p.norm_scale,
                         eps=cfg.norm_eps)
     out = y @ p.out_proj
     return out, SSMState(conv_x=new_tail_x.to(state.conv_x.dtype),

@@ -14,9 +14,11 @@ over the encoder memory, then a dense SwiGLU (fc-GELU-fc when
 the cross attention, the SSD scan, the expert FF and every RMSNorm go
 through the CUDA kernels (their plain versions on CPU tensors); the expert
 FF does in decode too, while a decode step's single query (self and cross
-attention) takes plain einsums. ``prefill`` also takes another kernel
-set, so that a check can hold it against the plain versions on the card;
-``forward`` and ``decode_step`` always use the kernels.
+attention) takes plain einsums. ``prefill`` and ``decode_step`` also
+take another kernel set, so that a check can hold them against the plain
+versions on the card and the dry run can count their operations on meta
+tensors; ``forward`` always uses the kernels. ``init_decode_state``
+builds empty caches, on ``meta`` too.
 
 Training (``forward_train``, ``loss_fn``) runs with autograd on through
 ``train_paths(cfg)``, the reference's ``use_pallas=False`` functions:
@@ -68,6 +70,7 @@ from repro_torch.models.layers import (
 from repro_torch.models.mamba2 import (
     Mamba2,
     SSMState,
+    init_ssm_state,
     mamba_decode_step,
     mamba_forward,
     ssd_chunked,
@@ -333,6 +336,28 @@ class Transformer(nn.Module):
                 max_positions or cfg.max_position_embeddings, cfg.d_model,
                 **kw)
 
+    @classmethod
+    def from_params(cls, cfg: ModelConfig, params: dict, *,
+                    device: str | torch.device = "cuda",
+                    dtype: torch.dtype = torch.float32,
+                    max_positions: int = 0) -> "Transformer":
+        """The model of ``cfg`` holding ``params`` ({name: tensor}, every
+        parameter), built on meta tensors and then filled, so no weight is
+        drawn first."""
+        dev = resolve_device(device)
+        model = cls(cfg, device="meta", dtype=dtype,
+                    max_positions=max_positions).to_empty(device=dev)
+        if cfg.is_encoder_decoder:  # the one buffer, not a parameter
+            model.encoder.pos_table = sinusoid_pos(
+                cfg.encoder_seq, cfg.d_model, device=dev)
+        missing = {n for n, _ in model.named_parameters()} - set(params)
+        if missing:
+            raise ValueError(f"no tensor for parameters {sorted(missing)}")
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(torch.as_tensor(params[name]))
+        return model
+
     def _logits(self, x: torch.Tensor,
                 kernels: KernelSet = KERNELS) -> torch.Tensor:
         x = self.final_norm(x, kernels)
@@ -465,25 +490,52 @@ class Transformer(nn.Module):
                                                      cross_kv=cross_kv)
 
     @torch.no_grad()
-    def decode_step(self, state: DecodeState, tokens: torch.Tensor
+    def decode_step(self, state: DecodeState, tokens: torch.Tensor, *,
+                    kernels: KernelSet = KERNELS
                     ) -> tuple[torch.Tensor, DecodeState]:
         """One-token decode. tokens (B, 1) -> (logits (B, 1, V), new state).
         KV caches are updated in place (see ``decode_attention``); SSM
-        states are replaced; the cross K/V carry over."""
+        states are replaced; the cross K/V carry over. ``kernels``: the
+        norms' and the expert FF's functions (the dry run counts a step
+        through ``train_paths(cfg)``)."""
         x = self._embed(tokens, start=state.step)
         cross_kv = state.cross_kv
         caches = []
         for layer, cache, mkv in zip(self.layers, state.caches, cross_kv):
-            h = layer.norm1(x)
+            h = layer.norm1(x, kernels)
             if layer.kind.mixer == "attn":
                 y, cache = attn_mod.decode_attention(layer.attn, self.cfg, h,
                                                      cache)
             else:
-                y, cache = mamba_decode_step(layer.mamba, self.cfg, h, cache)
+                y, cache = mamba_decode_step(layer.mamba, self.cfg, h, cache,
+                                             kernels)
             caches.append(cache)
-            x, _ = layer.feed_forward(layer.cross_attend(x + y, mkv))
-        return self._logits(x), DecodeState(caches=caches, step=state.step + 1,
-                                            cross_kv=cross_kv)
+            x, _ = layer.feed_forward(layer.cross_attend(x + y, mkv, kernels),
+                                      kernels)
+        return self._logits(x, kernels), DecodeState(
+            caches=caches, step=state.step + 1, cross_kv=cross_kv)
+
+    @torch.no_grad()
+    def init_decode_state(self, batch: int, max_seq: int, *,
+                          encoder_frames: torch.Tensor | None = None,
+                          cache_dtype: torch.dtype | None = None,
+                          kernels: KernelSet = KERNELS) -> DecodeState:
+        """Empty decode caches for ``batch`` sequences of up to ``max_seq``
+        tokens, port of the reference's ``init_decode_state``: a KV cache
+        in ``cache_dtype`` (default ``cfg.cache_dtype``) for each attention
+        layer, a zero SSM state for each Mamba layer, and, for an
+        encoder-decoder, each layer's cross K/V of the encoded
+        ``encoder_frames``. Built on the model's device, ``meta`` too."""
+        cfg = self.cfg
+        dev = self.embed.device
+        dtype = cache_dtype or getattr(torch, cfg.cache_dtype)
+        caches = [attn_mod.init_kv_cache(cfg, batch, max_seq, dtype,
+                                         device=dev)
+                  if layer.kind.mixer == "attn"
+                  else init_ssm_state(cfg, batch, device=dev)
+                  for layer in self.layers]
+        return DecodeState(caches=caches, step=0,
+                           cross_kv=self._memory_kv(encoder_frames, kernels))
 
 
 def loss_fn(model: Transformer, batch: dict, *, remat: str = "none",

@@ -40,7 +40,15 @@ def test_port_files_found():
             "src/repro_torch/launch/train.py",
             "src/repro_torch/train/train_step.py",
             "src/repro_torch/data/threefry.py",
-            "src/repro_torch/checkpoint/store.py"} <= names
+            "src/repro_torch/checkpoint/store.py",
+            "src/repro_torch/configs/specs.py",
+            "src/repro_torch/sharding/rules.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/launch/quickstart.py",
+            "src/repro_torch/launch/fault_tolerant_training.py",
+            "src/repro_torch/launch/carbon_aware_training.py",
+            "src/repro_torch/launch/lm_design_space.py"} <= names
     assert len(FILES) > 20
 
 
