@@ -147,8 +147,9 @@ Phases (any failure ends the script with a non-zero exit):
    ``whisper-base`` at
    (4, 128) over 1500 stub frames (the encoder and the cross attention);
    one line each of losses and grad norms (all finite), one of the warm
-   step (ms, tokens/s, peak memory, the bound of ``train_flops`` at 67
-   TFLOP/s and the share of it) with the card's name and power limit.
+   step (ms, tokens/s, peak memory, the bound: ``dryrun.device_cost``'s
+   FLOPs of the step at 67 TFLOP/s, the roofline's compute term, and the
+   share of it) with the card's name and power limit.
    On danube, at one state and batch, remat ``dots`` / ``minimal`` /
    ``none`` and 2 microbatches give the same loss and grad norm within
    1e-5. Then the six smoke configs take 3 steps on the card and on the
@@ -167,12 +168,22 @@ Phases (any failure ends the script with a non-zero exit):
    both production meshes, 0 failures, SKIPs exactly where
    ``cell_supported`` puts them, every cell's FLOPs equal to the closed
    form ``flop_terms`` (printed term by term) and the phase's time. Then
-   danube-1.8b f32 at (4, 512), remat dots: FlopCounterMode over one
-   real step on the card equals the meta count (and the closed form;
-   ``train_flops`` beside it), and ``state_bytes_per_device`` on a
-   (1, 1) mesh over NCCL equals the live ``TrainState`` plus the step's
-   gradients, printed beside ``[train]``'s peak (the gap: activations).
-14. ``[examples]``: ``launch.quickstart``, ``launch.lm_design_space``,
+   danube-1.8b f32 at (4, 512), remat dots: one real step on the card
+   with its AdamW update (``dryrun.device_step``) under
+   ``launch.costs.DeviceCostMode`` counts the meta count's FLOPs (and the
+   closed form's), and ``state_bytes_per_device`` on a (1, 1) mesh over
+   NCCL equals the live ``TrainState`` plus the step's gradients, printed
+   beside ``[train]``'s peak (the gap: activations).
+14. ``[roofline]``: ``repro_torch.launch.roofline`` over ``[dryrun]``'s
+   matrix, priced at the H100's spec-sheet rates (``roofline.H100_SXM``,
+   which every bound in this script uses). ``[dryrun]``'s card step held
+   to ``dryrun.device_cost`` on meta tensors on a (1, 1) mesh: FLOPs and
+   bytes accessed equal, ``max_memory_allocated`` within 0.9–1.1 x
+   ``peak_mem_per_device``; ``[train]``'s warm steps of the same config
+   against the compute, memory and collective terms (each at least the
+   compute term, the roofline fraction printed); the rendered 16x16
+   roofline table, one bound for every runnable cell and no FAIL row.
+15. ``[examples]``: ``launch.quickstart``, ``launch.lm_design_space``,
    ``launch.fault_tolerant_training`` and ``launch.carbon_aware_training``
    (its default 300 steps of (8, 128), an 80M-parameter model) with
    ``--device cuda``, each against a CPU run: decisions and ledgers card
@@ -197,8 +208,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # no-TC f32, dense bf16 TC
 TOL = {"float32": 5e-4, "bfloat16": 2e-2}  # tests/test_kernels.py _tol
 SSD_Y_TOL = {"float32": 5e-4, "bfloat16": 5e-2}  # tests/test_kernels.py SSD
 SSD_STATE_TOL = 5e-3
@@ -1622,38 +1631,6 @@ TRAIN_DP_STEPS = 3
 TRAIN_TIMEOUT_S = 300
 
 
-def train_flops(model, cfg, batch: int, seq: int) -> int:
-    """Least operations of one training step: 6 x each weight matrix's
-    elements x the tokens it multiplies (an MoE's k of E experts, a tied
-    head once more over the decoder's tokens; the encoder's weights and
-    the cross attention's K/V over the encoder's), plus 3 x 4 H D per
-    visible (query, key) pair of every attention. Lookups, norms, biases,
-    the depthwise convolutions, the SSD scan and elementwise work count
-    nothing: mamba2's token recurrence (5 P N a token and head) would add
-    ~6% of its weight term, the chunked form the model runs at chunk 256
-    19% (``launch.dryrun.flop_terms``' ``ssd_chunks``)."""
-    enc = cfg.encoder_seq if cfg.is_encoder_decoder else 0
-    dec_tok, enc_tok = batch * seq, batch * enc
-    mm = 0
-    for name, p in model.named_parameters():
-        if p.ndim < 2 or name in ("embed", "pos_embed") or ".conv_" in name:
-            continue
-        n = p.numel()
-        if ".moe.w_" in name:
-            n = n * cfg.experts_per_token // cfg.n_experts
-        enc_side = name.startswith("encoder.") or ".cross.wk" in name \
-            or ".cross.wv" in name
-        mm += n * (enc_tok if enc_side else dec_tok)
-    if cfg.tie_embeddings:
-        mm += model.embed.numel() * dec_tok
-    window = cfg.sliding_window or seq
-    causal = sum(min(q + 1, window) for q in range(seq))
-    n_attn = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
-    pairs = batch * (n_attn * causal + (cfg.n_layers * seq * enc
-                     + cfg.n_encoder_layers * enc * enc if enc else 0))
-    return 6 * mm + 12 * cfg.n_heads * cfg.head_dim * pairs
-
-
 def train_rank(rank: int, world: int, store: str, out: str,
                device: str) -> None:
     """One spawned rank of a gloo world: for each of ``TRAIN_DP_MODES``,
@@ -1783,7 +1760,9 @@ def train_phase(torch, dev, results, card: str,
     after each run, after the remat and microbatch comparison and after a
     profiled step: every count must stay 0 (recorded in ``results``).
     ``profile``: device time by op over one more warm step of each
-    full-width model."""
+    full-width model. Returns each full-width run's peak memory and warm
+    step seconds by (arch, batch, seq)."""
+    import dataclasses
     import math
     import tempfile
 
@@ -1792,7 +1771,8 @@ def train_phase(torch, dev, results, card: str,
     from repro_torch.configs.base import ShapeConfig, ShapeKind
     from repro_torch.data import batch_for
     from repro_torch.kernels import ops
-    from repro_torch.launch import train
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.roofline import H100_SXM
     from repro_torch.models import Transformer
     from repro_torch.train import (
         ElasticRunner,
@@ -1812,7 +1792,7 @@ def train_phase(torch, dev, results, card: str,
         for name, r in results.items():
             r["launches_by_path"][label] = counts[name]
 
-    peaks = {}
+    runs = {}
     print(f"[train] torch {torch.__version__}; selective checkpointing: "
           f"{hasattr(torch.utils.checkpoint, 'create_selective_checkpoint_contexts')}")
 
@@ -1831,16 +1811,21 @@ def train_phase(torch, dev, results, card: str,
                           "--remat", remat, "--lr", "1e-4", "--warmup", "2",
                           "--log-every", str(TRAIN_STEPS)])
         peak = torch.cuda.max_memory_allocated()
-        peaks[(arch, batch, seq)] = peak
         no_launches(label)
         losses = [h["loss"] for h in run.history]
         gnorms = [h["grad_norm"] for h in run.history]
         check(finite(losses) and finite(gnorms),
               f"{arch}: non-finite loss or grad norm {losses} {gnorms}")
         warm = run.step_seconds[1:]
+        runs[(arch, batch, seq)] = dict(peak=peak, warm=warm)
         ms = sum(warm) / len(warm) * 1e3
-        flops = train_flops(run.model, run.cfg, batch, seq)
-        bound_ms = flops / PEAK_FLOPS["float32"] * 1e3
+        # the roofline's compute term: the step's counted FLOPs at the f32
+        # peak ([roofline] holds the count to a step on the card)
+        flops = dryrun.device_cost(
+            dataclasses.replace(run.cfg, dtype="float32"),
+            ShapeConfig("t", ShapeKind.TRAIN, seq, batch),
+            {"data": 1, "model": 1}, remat=remat)["flops_per_device"]
+        bound_ms = flops / H100_SXM.peak("float32") * 1e3
         n_params = sum(p.numel() for p in run.model.parameters())
         print(f"[train] {arch} f32 ({batch}, {seq}), remat {remat}, "
               f"{n_params / 1e9:.3f} B params: losses "
@@ -1850,7 +1835,7 @@ def train_phase(torch, dev, results, card: str,
               f"ms, warm {ms:.1f} ms/step (min {min(warm) * 1e3:.1f}, max "
               f"{max(warm) * 1e3:.1f}), {run.tokens_per_step / ms * 1e3:.0f}"
               f" tokens/s, peak {peak / 1e9:.2f} GB; bound {bound_ms:.1f} ms"
-              f" ({flops / 1e12:.2f} TFLOP at 67 TFLOP/s f32), "
+              f" ({flops / 1e12:.2f} TFLOP counted, at 67 TFLOP/s f32), "
               f"{bound_ms / ms:.1%} of it [{card}]")
         if profile:
             state = run.state
@@ -2005,7 +1990,7 @@ def train_phase(torch, dev, results, card: str,
         print(f"[train] the world spawned, trained and joined in {wall:.1f} s")
     no_launches("train smoke, Markov, resume, DP")
     print("[train] kernel launches on the training paths: none")
-    return peaks
+    return runs
 
 
 # --- [dryrun]: shape, sharding and FLOP accounting ------------------------
@@ -2014,7 +1999,7 @@ DRYRUN_TIMEOUT_S = 300
 DRYRUN_CARD = (DANUBE, 4, 512, "dots")  # [train]'s first run
 
 
-def dryrun_phase(torch, dev, card: str, peaks: dict) -> None:
+def dryrun_phase(torch, dev, card: str, runs: dict) -> tuple[list, dict]:
     """Phase 13, ``[dryrun]``: the reference's dry-run matrix on the port.
     ``python -m repro_torch.launch.dryrun --all --both-meshes`` in a
     spawned process (a pool of ``DRYRUN_WORKERS`` over the (arch, shape)
@@ -2022,10 +2007,13 @@ def dryrun_phase(torch, dev, card: str, peaks: dict) -> None:
     one row per cell, 0 failures, SKIPs exactly where ``cell_supported``
     puts them, every cell's FLOPs equal to ``flop_terms``' closed form.
     Then the accounting is grounded on the card for danube-1.8b f32 at
-    (4, 512), remat dots: FlopCounterMode over one real step equals the
-    meta count, and ``state_bytes_per_device`` on a (1, 1) mesh over NCCL
-    equals the live ``TrainState`` plus the step's gradients; the step's
-    peak memory and ``[train]``'s beside it, the gap being activations."""
+    (4, 512), remat dots: ``DeviceCostMode`` over one real step with its
+    AdamW update (``dryrun.device_step``) counts the meta count's FLOPs,
+    and ``state_bytes_per_device`` on a (1, 1) mesh over NCCL equals the
+    live ``TrainState`` plus the step's gradients; the step's peak memory
+    and ``[train]``'s (``runs``) beside it, the gap being activations.
+    Returns the matrix's records (its ``--json``) and the card step's
+    counts and peak memory, for ``[roofline]``."""
     import dataclasses
     import datetime
     import os
@@ -2033,18 +2021,17 @@ def dryrun_phase(torch, dev, card: str, peaks: dict) -> None:
     import tempfile
 
     import torch.distributed as dist
-    from torch.utils.flop_counter import FlopCounterMode
 
-    from repro_torch.configs import (ARCH_IDS, SHAPE_IDS, cell_supported,
-                                     get_config, get_shape)
+    from repro_torch.configs import (ARCH_IDS, SHAPE_IDS, batch_specs,
+                                     cell_supported, get_config, get_shape)
     from repro_torch.configs.base import ShapeConfig, ShapeKind
     from repro_torch.data import batch_for
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun
+    from repro_torch.launch.costs import DeviceCostMode
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import Transformer
-    from repro_torch.train import adamw, constant_lr, init_train_state
-    from repro_torch.train.train_step import grads_over_microbatches
+    from repro_torch.train import init_train_state
 
     with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
         out = os.path.join(tmp, "matrix.json")
@@ -2099,27 +2086,29 @@ def dryrun_phase(torch, dev, card: str, peaks: dict) -> None:
     shape = ShapeConfig("card", ShapeKind.TRAIN, seq, batch)
     meta_flops = dryrun.count_flops(cfg, shape, remat=remat)
     torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
     model = Transformer(cfg, device=dev, dtype=torch.float32,
                         generator=torch.Generator(dev).manual_seed(0))
-    state = init_train_state(dict(model.named_parameters()),
-                             adamw(constant_lr(1e-4)))
-    b = batch_for(cfg, shape, step=0, device=dev)
+    opt = dryrun.step_optimizer()
+    state = init_train_state(dict(model.named_parameters()), opt)
+    spec = batch_specs(cfg, shape)  # the dtypes the meta count takes
+    b = {k: v.to(spec[k].dtype)
+         for k, v in batch_for(cfg, shape, step=0, device=dev).items()}
+    check(b.keys() == spec.keys(), f"batch {list(b)} is not {list(spec)}")
     ops.reset_launches()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with FlopCounterMode(display=False) as fc:
-        grads, _ = grads_over_microbatches(model, state.params, b,
-                                           remat=remat)
+    with DeviceCostMode() as cost:
+        grads = dryrun.device_step(model, "train", b, state=state, opt=opt,
+                                   remat=remat)
     torch.cuda.synchronize()
     step_peak = torch.cuda.max_memory_allocated()
     check(not any(ops.LAUNCHES.values()), "the counted step launched kernels")
-    card_flops = fc.get_total_flops()
     closed = sum(dryrun.flop_terms(cfg, shape, remat=remat).values())
-    bound = train_flops(model, cfg, batch, seq)
     print(f"[dryrun] {arch} f32 ({batch}, {seq}) remat {remat}: one step on "
-          f"the card {card_flops:.6e} FLOPs, meta count {meta_flops:.6e}, "
-          f"closed form {closed:.6e}; train_flops {bound:.6e} "
-          f"({card_flops / bound:.3f}x)")
-    check(card_flops == meta_flops == closed,
+          f"the card with its AdamW update {cost.flops:.6e} FLOPs, meta "
+          f"count {meta_flops:.6e}, closed form {closed:.6e}")
+    check(cost.flops == meta_flops == closed,
           "the card step's FLOPs differ from the meta count")
 
     def nbytes(tensors):
@@ -2139,7 +2128,7 @@ def dryrun_phase(torch, dev, card: str, peaks: dict) -> None:
             dry = dryrun.state_bytes_per_device(cfg, shape, mesh)
         finally:
             dist.destroy_process_group()
-    train_peak = peaks.get((arch, batch, seq))
+    train_peak = runs[(arch, batch, seq)]["peak"]
     print(f"[dryrun] {arch} f32 on a (1, 1) mesh over NCCL: "
           f"state_bytes_per_device {dry / 1e9:.4f} GB = live TrainState "
           f"{live / 1e9:.4f} GB + the step's gradients {live_grads / 1e9:.4f}"
@@ -2148,8 +2137,92 @@ def dryrun_phase(torch, dev, card: str, peaks: dict) -> None:
           f"{(train_peak - dry) / 1e9:.2f} GB [{card}]")
     check(dry == live + live_grads, "state_bytes_per_device differs from "
           "the live state and gradients")
-    del model, state
+    del model, state, b
     torch.cuda.empty_cache()
+    return cells, dict(flops=cost.flops, bytes=cost.bytes_accessed,
+                       live=cost.peak_live_bytes, peak=step_peak - before,
+                       before=before)
+
+
+# --- [roofline]: the dry run's per-device counts, priced and held to a step ----
+ROOFLINE_PEAK_RATIO = (0.9, 1.1)  # max_memory_allocated / peak_mem_per_device
+
+
+def roofline_phase(card: str, cells: list, step: dict, warm: list) -> None:
+    """Phase 14, ``[roofline]``: ``repro_torch.launch.roofline`` over
+    ``[dryrun]``'s matrix, and its counts held to ``[dryrun]``'s step on
+    the card (``step``). ``dryrun.device_cost`` counts danube-1.8b f32 at
+    (4, 512), remat dots, with its AdamW update, on meta tensors on a
+    (1, 1) mesh: the card step's FLOPs and bytes accessed must equal it,
+    and its ``torch.cuda.max_memory_allocated()`` (less what was allocated
+    before the model) must lie within ``ROOFLINE_PEAK_RATIO`` of
+    ``peak_mem_per_device``. ``[train]``'s warm steps of the same config
+    (``warm``, seconds) are set against the three terms at the H100's
+    spec-sheet rates: each must take at least the compute term. Then
+    ``roofline.render`` of the matrix: no FAIL row, one bound for every
+    runnable 16x16 cell, and its 16x16 table is printed."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig, ShapeKind
+    from repro_torch.launch import dryrun, roofline
+
+    arch, batch, seq, remat = DRYRUN_CARD
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    shape = ShapeConfig("card", ShapeKind.TRAIN, seq, batch)
+    t0 = time.perf_counter()
+    meta = dryrun.device_cost(cfg, shape, {"data": 1, "model": 1},
+                              remat=remat)
+    t_meta = time.perf_counter() - t0
+    rates = roofline.H100_SXM
+    t_c = meta["flops_per_device"] / rates.peak(cfg.dtype)
+    t_m = meta["bytes_accessed"] / rates.hbm
+    terms = {"compute": t_c, "eager-memory": t_m, "collective": 0.0}
+    print(f"[roofline] {arch} f32 ({batch}, {seq}) remat {remat} with "
+          f"AdamW, (1, 1) mesh, meta count in {t_meta:.1f} s: "
+          f"{meta['flops_per_device']:.6e} FLOPs, {meta['bytes_accessed']} "
+          f"bytes accessed, peak_mem_per_device "
+          f"{meta['peak_mem_per_device'] / 1e9:.4f} GB; terms at "
+          f"{rates.name} spec-sheet rates: compute {t_c * 1e3:.1f} ms, "
+          f"memory {t_m * 1e3:.1f} ms (eager bytes, a ceiling), "
+          f"collective 0")
+    ratio = step["peak"] / meta["peak_mem_per_device"]
+    print(f"[roofline] [dryrun]'s step on the card: {step['flops']:.6e} "
+          f"FLOPs, {step['bytes']} bytes accessed (meta "
+          f"{meta['bytes_accessed']}); max_memory_allocated "
+          f"{step['peak'] / 1e9:.4f} GB over the {step['before'] / 1e9:.4f}"
+          f" GB allocated before = {ratio:.4f} x peak_mem_per_device (the "
+          f"mode's own peak: {step['live'] / 1e9:.4f} GB live) [{card}]")
+    check(step["bytes"] == meta["bytes_accessed"]
+          and step["flops"] == meta["flops_per_device"],
+          "the card step's counts differ from the meta count")
+    check(ROOFLINE_PEAK_RATIO[0] <= ratio <= ROOFLINE_PEAK_RATIO[1],
+          f"max_memory_allocated is {ratio:.4f} x peak_mem_per_device")
+
+    top = max(terms, key=terms.get)
+    med = sorted(warm)[len(warm) // 2]
+    steps = [round(w * 1e3, 1) for w in warm]
+    print(f"[roofline] [train]'s warm steps {steps} ms: median "
+          f"{med * 1e3:.1f} ms against compute {t_c * 1e3:.1f}, "
+          f"memory {t_m * 1e3:.1f}, collective 0 ms; bound by {top}, "
+          f"roofline fraction (largest term / measured) "
+          f"{terms[top] / med:.4f} [{card}]")
+    check(min(warm) >= t_c, f"a warm step ({min(warm) * 1e3:.1f} ms) beat "
+          f"the compute term ({t_c * 1e3:.1f} ms)")
+
+    text = roofline.render(cells)
+    check("| FAIL" not in text, "the rendered matrix has a FAIL row")
+    table = text[text.index("### Roofline terms"):].splitlines()
+    rows = [r for r in table if r.startswith("| ") and not
+            r.startswith("| arch")]
+    runnable = [c for c in cells if c["ok"] and c["mesh"] == "16x16"]
+    check(len(rows) == len(runnable) and all(
+        r.split(" | ")[5] in terms for r in rows),
+        f"{len(rows)} roofline rows for {len(runnable)} runnable 16x16 cells")
+    for r in table:
+        print(f"[roofline] {r}")
+    print(f"[roofline] {len(rows)} runnable 16x16 cells, each with its "
+          f"bound [{card}]")
 
 
 # --- [examples]: the user entry points ----------------------------------------
@@ -2157,7 +2230,7 @@ EXAMPLES_RTOL = 1e-5
 
 
 def examples_phase(torch, dev, card: str) -> None:
-    """Phase 14, ``[examples]``: ``launch.quickstart``,
+    """Phase 15, ``[examples]``: ``launch.quickstart``,
     ``launch.lm_design_space``, ``launch.fault_tolerant_training`` and
     ``launch.carbon_aware_training`` (its default 300 steps of (8, 128))
     with ``--device cuda``, each also on the CPU: decisions and ledgers
@@ -2283,6 +2356,7 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch import serve
+    from repro_torch.launch.roofline import H100_SXM
     from repro_torch.models import Transformer, kernel_launches
     from repro_torch.serve import GreenScaleRouter, Request, ServeEngine
 
@@ -2333,8 +2407,8 @@ def main() -> None:
         return err
 
     def bound(nbytes, flops, dtype):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype_name(dtype)] * 1e3
+        t_bytes = nbytes / H100_SXM.hbm * 1e3
+        t_ops = flops / H100_SXM.peak(dtype_name(dtype)) * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     results = {}
@@ -2770,16 +2844,21 @@ def main() -> None:
           f"{time.perf_counter() - t_start:.1f} s")
 
     # --- phase 12: training -----------------------------------------------------
-    peaks = train_phase(torch, dev, results, smi, profile)
+    runs = train_phase(torch, dev, results, smi, profile)
     print(f"[chip_smoke] train phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # --- phase 13: the dry run's accounting, grounded on the card ----------------
-    dryrun_phase(torch, dev, smi, peaks)
+    cells, step = dryrun_phase(torch, dev, smi, runs)
     print(f"[chip_smoke] dryrun phase done at "
           f"{time.perf_counter() - t_start:.1f} s")
 
-    # --- phase 14: the user entry points ----------------------------------------
+    # --- phase 14: the roofline, its counts held to a step on the card ---------
+    roofline_phase(smi, cells, step, runs[DRYRUN_CARD[:3]]["warm"])
+    print(f"[chip_smoke] roofline phase done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # --- phase 15: the user entry points ----------------------------------------
     examples_phase(torch, dev, smi)
     print(f"[chip_smoke] examples phase done at "
           f"{time.perf_counter() - t_start:.1f} s")

@@ -20,30 +20,41 @@ cell it reports:
   ``--compression`` one float32 error-feedback residual (the port keeps it
   per rank, so the reference's ``(n_dp, ...)`` axis has no counterpart),
   and for serving the caches; all from the local shard shapes of the
-  ``sharding.rules`` placements. It is not a peak: no activation is
-  counted without running.
-* ``collectives``: counts by kind of the collectives one device issues,
-  from ``torch.distributed.tensor.debug.CommDebugMode`` over each layer
-  kind of the cell run once, sharded as the rules say on the cell's mesh,
-  scaled by the layer counts. Each layer kind runs Megatron-style: its
-  module is built for one tensor-parallel rank (``tp_local_config``: the
-  heads, FF width, experts and SSM heads the rank holds) and computes on
-  plain local meta shards, with ``DTensor`` redistributions where the
-  rules put communication: the input of a column-parallel block is
-  all-reduced in the backward, the output of a row-parallel block in the
-  forward, a vocab-parallel embedding's lookup, and the vocab-parallel
-  cross entropy's max, sum and gold logit; gradients of weights
-  replicated over the data axes are all-reduced, and under FSDP weights
-  are all-gathered for each use and their gradients reduce-scattered.
-  Remat recompute re-issues what it recomputes.
+  ``sharding.rules`` placements.
+* ``flops_per_device``, ``bytes_accessed`` and ``peak_mem_per_device``:
+  ``launch.costs.DeviceCostMode`` over one step as one device runs it
+  (``device_cost``): the model of one tensor-parallel rank at the local
+  batch, a training step with AdamW's update of the device's shards (the
+  reference's compiled step includes it). ``bytes_accessed`` follows XLA's
+  operand-plus-result convention op by op, unfused; the peak is the
+  state the device holds before the step plus the most the step's own
+  tensors hold at once. On a (1, 1) mesh ``flops_per_device`` is
+  ``flops``.
+* ``collectives`` and ``collective_bytes``: counts and bytes by kind of
+  the collectives one device issues, from ``DeviceCostMode`` over each
+  layer kind of the cell run once, sharded as the rules say on the cell's
+  mesh, scaled by the layer counts (``collective_cost``); each op counts
+  max(operand, result) bytes, the reference's rule, and
+  ``collective_groups`` keeps them by process group, for pricing on the
+  link the group spans (``launch.roofline``). Each layer kind runs
+  Megatron-style: its module is built for one tensor-parallel rank
+  (``tp_local_config``: the heads, FF width, experts and SSM heads the
+  rank holds) and computes on plain local meta shards, with ``DTensor``
+  redistributions where the rules put communication: the input of a
+  column-parallel block is all-reduced in the backward, the output of a
+  row-parallel block in the forward, a vocab-parallel embedding's lookup,
+  and the vocab-parallel cross entropy's max, sum and gold logit;
+  gradients of weights replicated over the data axes are all-reduced, and
+  under FSDP weights are all-gathered for each use and their gradients
+  reduce-scattered. Remat recompute re-issues what it recomputes.
 * SKIPs with the reference's ``cell_supported`` reasons, and ``count_s``
   (the time of the FLOP count, the counterpart of compile time).
 
-N/A, because there is no HLO: the reference's ``collective_bytes`` and
-``normalize_cost_analysis`` (they parse XLA output), ``measure_cell``'s
-two-probe extrapolation (XLA counts a ``while`` body once; an eager count
-covers every layer), and ``--no-seq-shard`` / ``act_spec`` (a GSPMD
-activation constraint).
+N/A, because there is no HLO: ``normalize_cost_analysis`` (it parses XLA
+output), ``measure_cell``'s two-probe extrapolation (XLA counts a
+``while`` body once; ``device_cost`` has its own, of two and three
+super-blocks, exact), and ``--no-seq-shard`` / ``act_spec`` (a GSPMD
+activation constraint). ``launch.roofline`` prices the per-device counts.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mamba2-780m --shape decode_32k
@@ -77,6 +88,7 @@ from repro_torch.configs import (
     meta_model,
 )
 from repro_torch.configs.base import ModelConfig, ShapeConfig, ShapeKind
+from repro_torch.launch.costs import COLLECTIVES, DeviceCostMode, nbytes
 from repro_torch.launch.mesh import (
     data_axes,
     fake_world,
@@ -103,10 +115,13 @@ from repro_torch.sharding.rules import (
     logical_param_spec,
     param_shardings,
 )
+from repro_torch.train.optimizer import adamw, warmup_cosine
 from repro_torch.train.remat import wrap_remat
-from repro_torch.train.train_step import bound, grads_over_microbatches
-
-COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all")
+from repro_torch.train.train_step import (
+    TrainState,
+    bound,
+    grads_over_microbatches,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -128,9 +143,15 @@ class DryRunResult:
     kind: str
     ok: bool
     error: str = ""
+    dtype: str = ""
     flops: float = 0.0
+    flops_per_device: float = 0.0
+    bytes_accessed: float = 0.0
     state_bytes_per_device: float = 0.0
+    peak_mem_per_device: float = 0.0
     collectives: dict = dataclasses.field(default_factory=dict)
+    collective_bytes: dict = dataclasses.field(default_factory=dict)
+    collective_groups: list = dataclasses.field(default_factory=list)
     count_s: float = 0.0
 
     def row(self) -> str:
@@ -141,8 +162,13 @@ class DryRunResult:
                         for k in COLLECTIVES)
         return (f"{self.arch:22s} {self.shape:12s} {self.mesh:10s} "
                 f"flops={self.flops:.4e} "
+                f"flops/dev={self.flops_per_device:.4e} "
+                f"bytes/dev={self.bytes_accessed:.4e} "
                 f"state/dev={self.state_bytes_per_device / 2**30:.2f}GiB "
-                f"{coll} count={self.count_s:.1f}s")
+                f"peak/dev={self.peak_mem_per_device / 2**30:.2f}GiB "
+                f"{coll} coll_bytes/dev="
+                f"{self.collective_bytes.get('total', 0):.4e} "
+                f"count={self.count_s:.1f}s")
 
 
 # ---------------------------------------------------------------------------
@@ -342,25 +368,30 @@ def _shard_bytes(mesh, spec, shape, dtype: torch.dtype) -> int:
     return math.prod(local_shape(mesh, spec, shape)) * dtype.itemsize
 
 
-def state_bytes_per_device(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
-                           compression: str = "none") -> int:
-    """Bytes one device of ``mesh`` holds of the cell's state (module
-    docstring); ``mesh``: a ``DeviceMesh`` or {axis name: size}."""
+def _state_parts(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                 compression: str = "none") -> dict[str, int]:
+    """``state_bytes_per_device`` part by part: ``weights``, and for
+    training ``grads``, ``moments`` (with AdamW's int32 step count) and
+    ``ef`` (the compression residual), for serving ``caches``."""
     model = meta_model(cfg, shape)
     kind = cell_kind(shape)
     params = dict(model.named_parameters())
     if kind == "train":
         specs = param_shardings(mesh, model, fsdp=True)
-        total = 4  # AdamW's int32 step count
+        parts = collections.Counter(moments=4)  # AdamW's int32 step count
         for name, p in params.items():
             shp = tuple(p.shape)
             w = _shard_bytes(mesh, specs[name], shp, p.dtype)
             f32 = _shard_bytes(mesh, specs[name], shp, torch.float32)
-            total += 2 * w + 2 * f32 + (f32 if compression != "none" else 0)
-        return total
+            parts["weights"] += w
+            parts["grads"] += w
+            parts["moments"] += 2 * f32
+            parts["ef"] += f32 if compression != "none" else 0
+        return dict(parts)
     specs = param_shardings(mesh, model)
-    total = sum(_shard_bytes(mesh, specs[n], tuple(p.shape), p.dtype)
-                for n, p in params.items())
+    parts = {"weights": sum(_shard_bytes(mesh, specs[n], tuple(p.shape),
+                                         p.dtype)
+                            for n, p in params.items()), "caches": 0}
     B, S = shape.global_batch, shape.seq_len
     if kind == "serve":
         state, _ = decode_specs(cfg, shape, model)
@@ -374,8 +405,180 @@ def state_bytes_per_device(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     leaves = decode_state_leaves(state)
     for name, spec in decode_state_sharding(mesh, state).items():
         t = leaves[name]
-        total += _shard_bytes(mesh, spec, tuple(t.shape), t.dtype)
-    return total
+        parts["caches"] += _shard_bytes(mesh, spec, tuple(t.shape), t.dtype)
+    return parts
+
+
+def state_bytes_per_device(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                           compression: str = "none") -> int:
+    """Bytes one device of ``mesh`` holds of the cell's state (module
+    docstring); ``mesh``: a ``DeviceMesh`` or {axis name: size}."""
+    return sum(_state_parts(cfg, shape, mesh,
+                            compression=compression).values())
+
+
+# ---------------------------------------------------------------------------
+# One device's step: FLOPs, bytes accessed, peak memory
+# ---------------------------------------------------------------------------
+
+
+# the parts of the state that the step itself creates: a training step its
+# gradients, a prefill the caches
+_MADE_BY_STEP = {"train": ("grads",), "prefill": ("caches",), "serve": ()}
+
+
+def step_optimizer():
+    """The AdamW of the reference's dry run (its schedule too)."""
+    return adamw(warmup_cosine(3e-4, 2000, 100000))
+
+
+def _as_shard(g: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """A gradient as the shard the update takes: itself where the shapes
+    agree, else a view of its first elements (the reduce-scatter's result,
+    whose bytes are the collective's) or, where the rank's gradient is the
+    smaller, a new tensor of the shard's shape."""
+    if tuple(g.shape) == shape:
+        return g
+    n = math.prod(shape)
+    if g.is_contiguous() and g.numel() >= n:
+        return g.view(-1)[:n].view(shape)
+    return g.new_empty(shape)
+
+
+def device_step(model, kind: str, batch: dict, *, state=None, opt=None,
+                remat: str = "minimal", microbatches: int = 1,
+                between=None) -> dict | None:
+    """One step of a cell as one device runs it: ``kind`` "serve" a decode
+    step of ``state`` (a ``DecodeState``), "prefill" the prefill of
+    ``batch``, "train" the loss's gradients by the model's own weights
+    (remat, microbatches) and ``opt``'s update of ``state`` (a
+    ``TrainState`` of the shards the device holds; a gradient is cut to
+    its shard's shape), calling ``between()`` (if given) between the two,
+    and returning the gradients the update took. ``device_cost`` counts it
+    on meta tensors, ``chip_smoke.py`` on the card."""
+    paths = train_paths(model.cfg)
+    if kind == "serve":
+        model.decode_step(state, batch["tokens"], kernels=paths)
+    elif kind == "prefill":
+        model.prefill(batch["tokens"], max_seq=batch["tokens"].shape[1],
+                      positions=batch.get("positions"),
+                      patch_embeds=batch.get("patch_embeds"),
+                      encoder_frames=batch.get("encoder_frames"),
+                      kernels=paths)
+    else:
+        grads, _ = grads_over_microbatches(
+            model, dict(model.named_parameters()), batch,
+            microbatches=microbatches, remat=remat)
+        grads = {k: _as_shard(g, tuple(state.params[k].shape))
+                 for k, g in grads.items()}
+        if between is not None:
+            between()
+        opt.update(grads, state.opt, state.params)
+        return grads
+    return None
+
+
+def _local_batch(shape: ShapeConfig, mesh) -> int:
+    """The sequences one device takes: the global batch over the data
+    axes where they divide it, else all of it."""
+    sizes = axis_sizes(mesh)
+    dp = math.prod(sizes[a] for a in sizes if a != "model")
+    B = shape.global_batch
+    return B // dp if B % dp == 0 else B
+
+
+def _step_cost(cfg: ModelConfig, lcfg: ModelConfig, shape: ShapeConfig,
+               local: ShapeConfig, mesh, *, remat: str, microbatches: int
+               ) -> tuple[DeviceCostMode, int]:
+    """``DeviceCostMode`` over one step of ``lcfg`` (one rank's model) at
+    the local shape, and the bytes the step holds that neither the mode
+    nor the resident state counts: its inputs, the model's buffers and,
+    for training, the weights the step computes with beyond the shards
+    the device keeps (under FSDP the gathered weights, all of them alive
+    for the step, as the gradients the mode counts are). A training step
+    updates the shards of ``cfg``'s weights that the rules give one
+    device of ``mesh``."""
+    kind = cell_kind(shape)
+    model = meta_model(lcfg, local)
+    state = opt = None
+    gathered = 0
+    if kind == "serve":
+        state, tokens = decode_specs(lcfg, local, model)
+        batch = {"tokens": tokens}
+    else:
+        batch = batch_specs(lcfg, local)
+    if kind == "prefill":
+        del batch["labels"]
+    if kind == "train":
+        glob = meta_model(dataclasses.replace(
+            cfg, n_layers=lcfg.n_layers,
+            n_encoder_layers=lcfg.n_encoder_layers), shape)
+        specs = param_shardings(mesh, glob, fsdp=True)
+        full = dict(glob.named_parameters())
+        params = {}
+        for name, p in model.named_parameters():
+            shp = local_shape(mesh, specs[name], tuple(full[name].shape))
+            params[name] = (p if tuple(p.shape) == shp else
+                            torch.empty(shp, dtype=p.dtype, device="meta"))
+            gathered += max(nbytes(p) - nbytes(params[name]), 0)
+        opt = step_optimizer()
+        state = TrainState(params, opt.init(params), None)
+    with DeviceCostMode() as cost:
+        device_step(model, kind, batch, state=state, opt=opt, remat=remat,
+                    microbatches=microbatches, between=cost.mark)
+        cost.mark()
+    return cost, gathered + sum(map(nbytes, [*batch.values(),
+                                             *model.buffers()]))
+
+
+def device_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                remat: str = "minimal", microbatches: int = 1,
+                compression: str = "none") -> dict:
+    """What one step of the cell costs one device of ``mesh``, counted by
+    ``DeviceCostMode`` on meta tensors: the model of one tensor-parallel
+    rank (``tp_local_config``) at the local batch, training with AdamW's
+    update of the device's shards. Returns ``flops_per_device``,
+    ``bytes_accessed`` and ``peak_mem_per_device``: the state the device
+    holds before the step (``state_bytes_per_device`` less what the step
+    makes: a training step's gradients, a prefill's caches), the step's
+    inputs, the model's buffers and under FSDP the gathered weights less
+    their shards (every weight gathered for the whole step: the step's
+    gradients are counted at the rank's full size too), plus the step's
+    ``peak_live_bytes``.
+
+    Every super-block (whisper: with one encoder layer each) runs the same
+    ops, so past three super-blocks the step is counted at two and at
+    three and extended linearly to the model's depth: the FLOPs, bytes and
+    gathered weights are sums over ops or layers, and each phase's peak (a
+    training step's backward, then its update) grows by what one more
+    super-block keeps alive; the peak is the larger phase's. ``tests/test_torch_roofline.py`` holds
+    this to the whole step, and ``chip_smoke.py`` the whole step on the
+    card to it."""
+    kind = cell_kind(shape)
+    lcfg = tp_local_config(cfg, axis_sizes(mesh)["model"])
+    local = dataclasses.replace(shape, global_batch=_local_batch(shape, mesh))
+    period = block_period(cfg)
+    units = cfg.n_layers // period
+    enc, rem = divmod(cfg.n_encoder_layers, units)
+    if rem:
+        raise ValueError(f"{cfg.name}: {cfg.n_encoder_layers} encoder "
+                         f"layers do not spread over {units} super-blocks")
+    counts = []
+    for u in (2, 3) if units > 3 else (units,):
+        cost, held = _step_cost(
+            cfg, dataclasses.replace(lcfg, n_layers=u * period,
+                                     n_encoder_layers=u * enc),
+            shape, local, mesh, remat=remat, microbatches=microbatches)
+        counts.append((u, (cost.flops, cost.bytes_accessed, held,
+                            *cost.phase_peaks)))
+    (_, first), (u, last) = counts[0], counts[-1]
+    flops, moved, held, *peaks = (b + (units - u) * (b - a)
+                                  for a, b in zip(first, last))
+    parts = _state_parts(cfg, shape, mesh, compression=compression)
+    resident = sum(v for k, v in parts.items()
+                   if k not in _MADE_BY_STEP[kind])
+    return {"flops_per_device": flops, "bytes_accessed": moved,
+            "peak_mem_per_device": resident + held + max(peaks)}
 
 
 # ---------------------------------------------------------------------------
@@ -526,23 +729,6 @@ class _Weights:
                 d.grad.redistribute(self.mesh, d.placements)
 
 
-def _count_comm(fn) -> dict:
-    from torch.distributed.tensor.debug import CommDebugMode
-    comm = CommDebugMode()
-    with comm:
-        fn()
-    counts = collections.Counter()
-    for op, n in comm.get_comm_counts().items():
-        name = str(op).split(".")[-1]
-        for kind in COLLECTIVES:
-            if name.startswith(kind):
-                counts[kind] += n
-                break
-        else:
-            counts[name] += n
-    return dict(counts)
-
-
 def _superblock_fn(layers, lcfg, comm: _Comm, kernels, positions, memory):
     """One super-block of sub-layers on local shards, as
     ``DecoderLayer.forward`` computes each, with the Megatron f / g around
@@ -625,21 +811,21 @@ def _embed_head_fn(mod: _EmbedHead, comm: _Comm, sharded: bool,
     return fn
 
 
-def count_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
-                      remat: str = "minimal", microbatches: int = 1) -> dict:
-    """Collectives by kind that one device issues for one step of the cell
-    on ``mesh`` (the module docstring): one super-block counted and scaled
-    by the super-blocks, whisper's encoder layer by its layers, then the
-    embedding and head."""
+def collective_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
+                    remat: str = "minimal", microbatches: int = 1) -> dict:
+    """The collectives one device issues for one step of the cell on
+    ``mesh`` (the module docstring), from ``DeviceCostMode``: one
+    super-block counted and scaled by the super-blocks, whisper's encoder
+    layer by its layers, then the embedding and head. Returns ``counts``
+    and ``bytes`` by kind (``bytes`` with its ``total``) and ``groups``:
+    one {kind, size, span (the group's lowest and highest rank), bytes}
+    per kind and process group."""
     kind = cell_kind(shape)
     train = kind == "train"
-    sizes = axis_sizes(mesh)
-    tp = sizes["model"]
-    dp = math.prod(sizes[a] for a in data_axes(mesh))
+    tp = axis_sizes(mesh)["model"]
     lcfg = tp_local_config(cfg, tp)
     dtype = getattr(torch, cfg.dtype)
-    B = shape.global_batch
-    b = B // dp if B % dp == 0 else B
+    b = _local_batch(shape, mesh)
     if train:
         b = max(b // microbatches, 1)
     S = 1 if kind == "serve" else shape.seq_len
@@ -647,11 +833,13 @@ def count_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     comm = _Comm(mesh)
     meta = dict(device="meta", dtype=dtype)
     reps = microbatches if train else 1
+    counts, moved, groups = (collections.Counter() for _ in range(3))
 
-    def run(module, fn, *inputs, remat_fn: bool = True):
+    def run(times, module, fn, *inputs, remat_fn: bool = True):
         weights = _Weights(module, mesh, fsdp=train, train=train)
-
-        def body():
+        cost = DeviceCostMode()
+        ctx = torch.enable_grad() if train else torch.no_grad()
+        with ctx, cost:
             for _ in range(reps):
                 with bound(module, weights.gathered()):
                     f = wrap_remat(fn, remat) if train and remat_fn else fn
@@ -664,13 +852,13 @@ def count_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
                         loss.backward()
             if train:
                 weights.sync()
-
-        ctx = torch.enable_grad() if train else torch.no_grad()
-        with ctx:
-            return _count_comm(body)
+        for total, got in ((counts, cost.collective_counts),
+                           (moved, cost.collective_bytes),
+                           (groups, cost.collective_groups)):
+            for k, v in got.items():
+                total[k] += times * v
 
     period = block_period(cfg)
-    total = collections.Counter()
     x = torch.empty((b, S, cfg.d_model), **meta)
     pos = torch.arange(S, device="meta").expand(b, S)
     if cfg.mrope:
@@ -680,28 +868,29 @@ def count_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     block = torch.nn.ModuleList(
         DecoderLayer(lcfg, k, device="meta", dtype=dtype, generator=None)
         for k in layer_kinds(cfg))
-    counts = run(block, _superblock_fn(block, lcfg, comm, kernels, pos,
-                                       memory), x)
-    for c, v in counts.items():
-        total[c] += cfg.n_layers // period * v
+    run(cfg.n_layers // period, block,
+        _superblock_fn(block, lcfg, comm, kernels, pos, memory), x)
     if enc and kind != "serve":  # the encoder runs outside remat
         layer = EncoderLayer(lcfg, device="meta", dtype=dtype,
                              generator=None)
-        counts = run(layer, _encoder_fn(layer, lcfg, comm, kernels),
-                     torch.empty((b, enc, cfg.d_model), **meta),
-                     remat_fn=False)
-        for c, v in counts.items():
-            total[c] += cfg.n_encoder_layers * v
+        run(cfg.n_encoder_layers, layer,
+            _encoder_fn(layer, lcfg, comm, kernels),
+            torch.empty((b, enc, cfg.d_model), **meta), remat_fn=False)
     sharded = cfg.vocab_size % tp == 0
     mod = _EmbedHead(cfg, cfg.vocab_size // tp if sharded
                      else cfg.vocab_size, dtype)
     tokens = torch.zeros((b, S), dtype=torch.int64, device="meta")
-    for c, v in run(mod, _embed_head_fn(mod, comm, sharded and tp > 1,
-                                        train), tokens, x,
-                    remat_fn=False).items():
-        total[c] += v
-    return {c: total.get(c, 0) for c in COLLECTIVES} | {
-        c: v for c, v in total.items() if c not in COLLECTIVES}
+    run(1, mod, _embed_head_fn(mod, comm, sharded and tp > 1, train),
+        tokens, x, remat_fn=False)
+
+    def by_kind(c: collections.Counter) -> dict:
+        return {k: c.get(k, 0) for k in COLLECTIVES} | {
+            k: v for k, v in c.items() if k not in COLLECTIVES}
+
+    return {"counts": by_kind(counts),
+            "bytes": by_kind(moved) | {"total": sum(moved.values())},
+            "groups": [{"kind": k, "size": n, "span": [lo, hi], "bytes": v}
+                       for (k, n, lo, hi), v in sorted(groups.items())]}
 
 
 # ---------------------------------------------------------------------------
@@ -720,7 +909,7 @@ def lower_cell(arch: str, shape_id: str, mesh, *, remat: str = "minimal",
     shape = get_shape(shape_id)
     kind = cell_kind(shape)
     res = DryRunResult(arch=arch, shape=shape_id, mesh=mesh_name(mesh),
-                       kind=kind, ok=False)
+                       kind=kind, ok=False, dtype=cfg.dtype)
     ok, why = cell_supported(cfg, shape)
     if not ok:
         res.error = "SKIP: " + why
@@ -735,8 +924,16 @@ def lower_cell(arch: str, shape_id: str, mesh, *, remat: str = "minimal",
             res.flops, res.count_s = counted
         res.state_bytes_per_device = float(state_bytes_per_device(
             cfg, shape, mesh, compression=compression))
-        res.collectives = count_collectives(cfg, shape, mesh, remat=remat,
-                                            microbatches=microbatches)
+        per_step = dict(remat=remat, microbatches=microbatches)
+        coll = collective_cost(cfg, shape, mesh, **per_step)
+        res.collectives = coll["counts"]
+        res.collective_bytes = coll["bytes"]
+        res.collective_groups = coll["groups"]
+        cost = device_cost(cfg, shape, mesh, compression=compression,
+                           **per_step)
+        res.flops_per_device = float(cost["flops_per_device"])
+        res.bytes_accessed = float(cost["bytes_accessed"])
+        res.peak_mem_per_device = float(cost["peak_mem_per_device"])
         res.ok = True
     except Exception as e:  # noqa: BLE001 — report, don't crash the matrix
         res.error = f"{type(e).__name__}: {e}"

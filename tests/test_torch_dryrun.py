@@ -67,7 +67,7 @@ def test_microbatches_split_the_same_work():
 
 def test_the_closed_form_weights_term_is_6_n_tokens():
     """For a dense model the weights term is 6 x the weight matrices'
-    elements x the tokens, ``chip_smoke.py``'s ``train_flops`` rule."""
+    elements x the tokens, the 6·N·D rule."""
     cfg = get_config("h2o-danube-1.8b", smoke=True)
     model = Transformer(cfg, device="meta")
     n = sum(p.numel() for name, p in model.named_parameters()
@@ -171,8 +171,8 @@ def test_one_all_reduce_per_attention_block_and_mlp(mesh22):
     the vocab-parallel embedding, and nothing else."""
     cfg = get_config("h2o-danube-1.8b", smoke=True)
     for kind in (ShapeKind.PREFILL, ShapeKind.DECODE):
-        got = dryrun.count_collectives(cfg, ShapeConfig("s", kind, 64, 4),
-                                       mesh22)
+        got = dryrun.collective_cost(cfg, ShapeConfig("s", kind, 64, 4),
+                                     mesh22)["counts"]
         assert got == {"all_reduce": 2 * cfg.n_layers + 1, "all_gather": 0,
                        "reduce_scatter": 0, "all_to_all": 0}
 
@@ -184,12 +184,13 @@ def test_training_collectives_on_a_2x2_mesh(mesh22):
     gathered once and its gradient reduce-scattered."""
     cfg = get_config("h2o-danube-1.8b", smoke=True)
     shape = ShapeConfig("t", ShapeKind.TRAIN, 64, 4)
-    got = dryrun.count_collectives(cfg, shape, mesh22, remat="none")
+    got = dryrun.collective_cost(cfg, shape, mesh22, remat="none")["counts"]
     n_fsdp = 7 * cfg.n_layers + 2  # q k v o gate up down, embed, lm_head
     # embed + head: lookup, max, sum, gold, the head input's gradient
     assert got["all_reduce"] == 6 * cfg.n_layers + 5
     assert got["all_gather"] == got["reduce_scatter"] == n_fsdp
-    remat = dryrun.count_collectives(cfg, shape, mesh22, remat="minimal")
+    remat = dryrun.collective_cost(cfg, shape, mesh22,
+                                   remat="minimal")["counts"]
     assert remat["all_reduce"] > got["all_reduce"]
 
 
@@ -201,7 +202,8 @@ def test_every_family_counts_on_the_production_mesh(arch):
     cfg = get_config(arch)
     with fake_world(256):
         mesh = make_production_mesh(device="cpu")
-        got = dryrun.count_collectives(cfg, get_shape("decode_32k"), mesh)
+        got = dryrun.collective_cost(cfg, get_shape("decode_32k"),
+                                     mesh)["counts"]
     kinds = layer_kinds(cfg)
     n_blocks = sum(1 + (k.ff is not None) + k.cross_attn
                    for k in kinds) * (cfg.n_layers // len(kinds))

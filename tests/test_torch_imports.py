@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX or the reference package ``repro`` (it keeps
-its own copies of what it needs), so it runs on a host without JAX."""
+``chip_smoke.py`` imports JAX, the reference package ``repro`` or the
+reference's ``benchmarks`` and ``tools`` (it keeps its own copies of what
+it needs), so it runs on a host without JAX."""
 
 import ast
 from pathlib import Path
@@ -14,7 +15,7 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "benchmarks", "tools")
 
 
 def _imports(tree: ast.AST):
@@ -48,7 +49,9 @@ def test_port_files_found():
             "src/repro_torch/launch/quickstart.py",
             "src/repro_torch/launch/fault_tolerant_training.py",
             "src/repro_torch/launch/carbon_aware_training.py",
-            "src/repro_torch/launch/lm_design_space.py"} <= names
+            "src/repro_torch/launch/lm_design_space.py",
+            "src/repro_torch/launch/costs.py",
+            "src/repro_torch/launch/roofline.py"} <= names
     assert len(FILES) > 20
 
 
@@ -62,6 +65,8 @@ def test_no_jax_or_reference_imports(path):
 def test_checker_catches_forbidden_imports():
     src = ("import jax\nfrom jax import numpy\nimport repro.core\n"
            "from repro.serve import router\nimport repro_torch\n"
-           "import importlib\nimportlib.import_module('repro.models')\n")
+           "import importlib\nimportlib.import_module('repro.models')\n"
+           "from benchmarks import roofline\nimport tools.render_roofline\n")
     found = [m for _, m in _imports(ast.parse(src)) if _forbidden(m)]
-    assert found == ["jax", "jax", "repro.core", "repro.serve", "repro.models"]
+    assert found == ["jax", "jax", "repro.core", "repro.serve", "benchmarks",
+                     "tools.render_roofline", "repro.models"]

@@ -174,7 +174,11 @@ class TestRefitDivergence:
     cause is the refitted params alone: the port's serve loop with the
     reference's params swapped in at every refit is decision-identical to
     the reference's, and on the reference's own buffer the two fits'
-    scores agree to float32 rounding of the normal equations."""
+    scores agree to float32 rounding of the normal equations. The flips
+    are near-ties whose side depends on the reference's host: the bits of
+    its float32 gram ``Xb.T @ Xb`` change with the CPU cores its process
+    may use (``test_reference_gram_depends_on_cpu_affinity``), so no fixed
+    summation order in the port matches them on every host."""
 
     N = 30_000
     PAD = 8192  # every draft pads to one shape (one compile a router)
@@ -280,3 +284,49 @@ class TestRefitDivergence:
         assert (r_res.step[flipped] > first_refit).all()
         assert (own.step[flipped] > first_refit).all()
         assert abs(own.shed_count - r_res.shed_count) <= flipped.sum()
+
+
+# One process of the reference's arithmetic: XLA's CPU dot of a seeded
+# (6000, 12) float32 matrix with itself, the gram of the refit's ridge fit
+# (``src/repro/core/schedulers.py``), pinned to the cores given.
+_GRAM = """
+import os, sys
+os.sched_setaffinity(0, {int(c) for c in sys.argv[1:]})
+import jax
+import numpy as np
+a = np.random.default_rng(0).standard_normal((6000, 12)).astype(np.float32)
+sys.stdout.write(np.asarray(jax.jit(lambda a: a.T @ a)(a)).tobytes().hex())
+"""
+
+
+def test_reference_gram_depends_on_cpu_affinity():
+    """ROADMAP C5's cause lies in the reference: the same jitted
+    ``a.T @ a`` on the same inputs gives other bits on one core than on
+    two, because XLA's CPU runtime splits the dot by the cores the process
+    may use."""
+    import os
+    import subprocess
+    import sys
+
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) < 2:
+        pytest.skip("the host offers fewer than two cores")
+    # XLA's default flags: a forced host device count (the reference's
+    # launch/dryrun.py sets one when imported) runs the dot on one thread
+    # whatever the affinity
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["JAX_PLATFORMS"] = "cpu"
+    grams = []
+    for pinned in (cores[:1], cores[:2]):
+        out = subprocess.run(
+            [sys.executable, "-c", _GRAM, *map(str, pinned)], env=env,
+            capture_output=True, text=True, timeout=120, check=True).stdout
+        grams.append(np.frombuffer(bytes.fromhex(out), np.float32))
+    one, two = grams
+    assert one.shape == two.shape == (144,)
+    # the same gram to float32 rounding of 6000-term sums, in other bits
+    assert np.abs(one - two).max() <= 1e-5 * np.abs(one).max()
+    if (one == two).all():
+        # a property of the XLA build and the host, not of either package
+        pytest.skip("XLA's CPU dot gives the same bits on one core and on "
+                    "two with this build on this host")
