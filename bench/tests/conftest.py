@@ -1,0 +1,10 @@
+"""The benchmark's tests run on the CPU at smoke sizes (``cuda``-marked
+ones need the card): ``PYTHONPATH=src python -m pytest -q bench/tests``."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT / "src"), str(ROOT)):
+    if p not in sys.path:
+        sys.path.insert(0, p)
