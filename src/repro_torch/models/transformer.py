@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
@@ -242,6 +243,16 @@ class DecoderLayer(nn.Module):
             y, _ = mamba_forward(self.mamba, self.cfg, h, kernels=kernels)
         return self.feed_forward(self.cross_attend(x + y, mkv, kernels),
                                  kernels)
+
+
+def _feed_forward(layer: DecoderLayer, x: torch.Tensor,
+                  kernels: KernelSet) -> torch.Tensor:
+    """A served layer's FF inside its span, ``moe`` or ``ff`` (none for
+    a layer without an FF)."""
+    if layer.kind.ff is None:
+        return x
+    with obs.span("moe" if layer.kind.ff == "moe" else "ff"):
+        return layer.feed_forward(x, kernels)[0]
 
 
 def _kv_to_ring(k: torch.Tensor, buf: int) -> torch.Tensor:
@@ -474,20 +485,23 @@ class Transformer(nn.Module):
         cross_kv = self._memory_kv(encoder_frames, kernels)
         caches = []
         for layer, mkv in zip(self.layers, cross_kv):
-            h = layer.norm1(x, kernels)
-            if layer.kind.mixer == "attn":
-                y, k, v = attn_mod.attention(layer.attn, cfg, h, positions,
-                                             kernels)
-                caches.append(KVCache(
-                    k=_kv_to_ring(k.to(cache_dtype), kv_buf),
-                    v=_kv_to_ring(v.to(cache_dtype), kv_buf), length=S))
-            else:
-                y, st = mamba_forward(layer.mamba, cfg, h, kernels=kernels)
-                caches.append(st)
-            x, _ = layer.feed_forward(layer.cross_attend(x + y, mkv, kernels),
-                                      kernels)
-        return self._logits(x, kernels), DecodeState(caches=caches, step=S,
-                                                     cross_kv=cross_kv)
+            with obs.span(layer.kind.mixer):
+                h = layer.norm1(x, kernels)
+                if layer.kind.mixer == "attn":
+                    y, k, v = attn_mod.attention(layer.attn, cfg, h,
+                                                 positions, kernels)
+                    caches.append(KVCache(
+                        k=_kv_to_ring(k.to(cache_dtype), kv_buf),
+                        v=_kv_to_ring(v.to(cache_dtype), kv_buf), length=S))
+                else:
+                    y, st = mamba_forward(layer.mamba, cfg, h,
+                                          kernels=kernels)
+                    caches.append(st)
+            x = _feed_forward(layer, layer.cross_attend(x + y, mkv, kernels),
+                              kernels)
+        with obs.span("head"):
+            logits = self._logits(x, kernels)
+        return logits, DecodeState(caches=caches, step=S, cross_kv=cross_kv)
 
     @torch.no_grad()
     def decode_step(self, state: DecodeState, tokens: torch.Tensor, *,
@@ -502,18 +516,21 @@ class Transformer(nn.Module):
         cross_kv = state.cross_kv
         caches = []
         for layer, cache, mkv in zip(self.layers, state.caches, cross_kv):
-            h = layer.norm1(x, kernels)
-            if layer.kind.mixer == "attn":
-                y, cache = attn_mod.decode_attention(layer.attn, self.cfg, h,
-                                                     cache)
-            else:
-                y, cache = mamba_decode_step(layer.mamba, self.cfg, h, cache,
-                                             kernels)
+            with obs.span(layer.kind.mixer):
+                h = layer.norm1(x, kernels)
+                if layer.kind.mixer == "attn":
+                    y, cache = attn_mod.decode_attention(layer.attn, self.cfg,
+                                                         h, cache)
+                else:
+                    y, cache = mamba_decode_step(layer.mamba, self.cfg, h,
+                                                 cache, kernels)
             caches.append(cache)
-            x, _ = layer.feed_forward(layer.cross_attend(x + y, mkv, kernels),
-                                      kernels)
-        return self._logits(x, kernels), DecodeState(
-            caches=caches, step=state.step + 1, cross_kv=cross_kv)
+            x = _feed_forward(layer, layer.cross_attend(x + y, mkv, kernels),
+                              kernels)
+        with obs.span("head"):
+            logits = self._logits(x, kernels)
+        return logits, DecodeState(caches=caches, step=state.step + 1,
+                                   cross_kv=cross_kv)
 
     @torch.no_grad()
     def init_decode_state(self, batch: int, max_seq: int, *,

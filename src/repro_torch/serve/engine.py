@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import DecodeState, Transformer
@@ -76,16 +77,18 @@ class ServeEngine:
         """tokens (B, S) -> (last-position logits (B, V), decode state).
         ``extras``: the model's ``positions`` / ``patch_embeds`` /
         ``encoder_frames``, moved to the engine's device."""
-        extras = {k: v.to(self.device) for k, v in extras.items()}
-        logits, state = self.model.prefill(tokens.to(self.device),
-                                           max_seq=self.max_seq, **extras)
-        return logits[:, -1], state
+        with obs.span("prefill"):
+            extras = {k: v.to(self.device) for k, v in extras.items()}
+            logits, state = self.model.prefill(tokens.to(self.device),
+                                               max_seq=self.max_seq, **extras)
+            return logits[:, -1], state
 
     def serve_step(self, state: DecodeState, tokens: torch.Tensor
                    ) -> tuple[torch.Tensor, DecodeState]:
         """One decode step. tokens (B, 1) -> (logits (B, V), new state)."""
-        logits, state = self.model.decode_step(state, tokens)
-        return logits[:, 0], state
+        with obs.span("decode"):
+            logits, state = self.model.decode_step(state, tokens)
+            return logits[:, 0], state
 
     def generate(self, tokens: torch.Tensor, *, max_new_tokens: int,
                  generator: torch.Generator | None = None,

@@ -35,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.models.transformer import Transformer, loss_fn
 from repro_torch.train import compression as comp
 from repro_torch.train.optimizer import AdamState, Optimizer
@@ -103,8 +104,10 @@ def grads_over_microbatches(model: Transformer, params: dict, batch: dict, *,
     acc, metrics = None, []
     with bound(model, leaves):
         for b in chunks:
-            loss, m = loss_fn(model, b, remat=remat)
-            g = torch.autograd.grad(loss, list(leaves.values()))
+            with obs.span("train.forward"):
+                loss, m = loss_fn(model, b, remat=remat)
+            with obs.span("train.backward"):
+                g = torch.autograd.grad(loss, list(leaves.values()))
             metrics.append({k: v.detach() for k, v in m.items()})
             if microbatches <= 1:
                 acc = dict(zip(leaves, g))
@@ -155,7 +158,9 @@ def make_train_step(model: Transformer, optimizer: Optimizer, *,
             metrics = comp.mean_metrics(metrics, group, n_dp)
         if grad_dtype is not None:
             grads = {k: g.to(grad_dtype) for k, g in grads.items()}
-        params, opt, gnorm = optimizer.update(grads, state.opt, state.params)
+        with obs.span("train.optimizer"):
+            params, opt, gnorm = optimizer.update(grads, state.opt,
+                                                  state.params)
         metrics = dict(metrics, grad_norm=gnorm, step=opt.count.float())
         return TrainState(params, opt, ef), metrics
 

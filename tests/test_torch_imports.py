@@ -51,7 +51,8 @@ def test_port_files_found():
             "src/repro_torch/launch/carbon_aware_training.py",
             "src/repro_torch/launch/lm_design_space.py",
             "src/repro_torch/launch/costs.py",
-            "src/repro_torch/launch/roofline.py"} <= names
+            "src/repro_torch/launch/roofline.py",
+            "src/repro_torch/obs.py"} <= names
     assert len(FILES) > 20
 
 
