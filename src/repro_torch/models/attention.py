@@ -196,20 +196,23 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                     cache: KVCache) -> tuple[torch.Tensor, KVCache]:
-    """One-token decode step: x (B, 1, d_model) against the cache."""
+                     cache: KVCache, positions: torch.Tensor
+                     ) -> tuple[torch.Tensor, KVCache]:
+    """One-token decode step: x (B, 1, d_model) against the cache, at the
+    absolute position ``positions`` (B, 1) int32 (every row the same, the
+    host's ``cache.length``). The ring slot, the cache write and the mask
+    are computed on the device from that tensor, so the step reads no host
+    int and a CUDA graph of it replays at any position."""
     B = x.shape[0]
-    pos = cache.length  # absolute position of the new token
     q, k, v = _project_qkv(p, cfg, x)
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    if cfg.mrope:
-        positions = positions.expand(3, B, 1)
-    q, k = _rope(cfg, q, k, positions)
+    rot = positions.expand(3, B, 1) if cfg.mrope else positions
+    q, k = _rope(cfg, q, k, rot)
 
     buf = cache.k.shape[1]
-    slot = pos % buf  # round-robin for SWA; == pos for full attention
-    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+    pos = positions[0]  # (1,)
+    slot = torch.remainder(pos, buf).long()  # round-robin for SWA
+    cache.k.index_copy_(1, slot, k.to(cache.k.dtype))
+    cache.v.index_copy_(1, slot, v.to(cache.v.dtype))
 
     # Validity: ring slots written so far, and (for SWA) within the window.
     # Slot i holds the largest position p <= pos with p % buf == i; the
@@ -224,7 +227,7 @@ def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                  & (k_pos <= pos))
 
     out = _one_query(q, cache.k, cache.v, valid) @ p.wo
-    return out, KVCache(k=cache.k, v=cache.v, length=pos + 1)
+    return out, KVCache(k=cache.k, v=cache.v, length=cache.length + 1)
 
 
 def _one_query(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

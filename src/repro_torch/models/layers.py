@@ -18,6 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.kernels.ops import KERNELS, KernelSet
 
@@ -122,14 +123,40 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
+#: float32 inverse frequencies per (head_dim, theta, device), built once
+_INV_FREQ: dict[tuple, torch.Tensor] = {}
+#: M-RoPE's channel -> position stream ids per (sections, device)
+_SECTION_IDS: dict[tuple, torch.Tensor] = {}
+
+
+def _once(cache: dict, key: tuple, build) -> torch.Tensor:
+    """``cache[key]``, built by ``build()`` on the first call. The build
+    runs outside any dispatch mode, so a counting mode (``launch.costs``)
+    sees the same ops in a step whether or not the table existed before."""
+    table = cache.get(key)
+    if table is None:
+        with _disable_current_modes():
+            table = cache[key] = build()
+    return table
+
+
+def rope_table(head_dim: int, theta: float,
+               device: torch.device) -> torch.Tensor:
+    """``rope_frequencies(head_dim, theta)`` cast to float32 on ``device``,
+    built on the first call and cached: later calls copy nothing to the
+    card, so a step neither waits on the host nor breaks a CUDA graph's
+    capture."""
+    return _once(_INV_FREQ, (head_dim, float(theta), device),
+                 lambda: torch.as_tensor(rope_frequencies(head_dim, theta),
+                                         dtype=torch.float32, device=device))
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """Rotate (..., seq, heads, head_dim) by per-token positions (..., seq):
     half-split rotation in float32, with the inverse frequencies held in
     float32 as the reference's jnp arrays hold them."""
-    head_dim = x.shape[-1]
-    inv_freq = torch.as_tensor(rope_frequencies(head_dim, theta),
-                               dtype=torch.float32, device=x.device)
+    inv_freq = rope_table(x.shape[-1], theta, x.device)
     angles = positions[..., None].float() * inv_freq  # (..., S, hd/2)
     return _rotate(x, angles)
 
@@ -155,11 +182,11 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     if sum(sections) != head_dim // 2:
         raise ValueError(f"mrope sections {sections} do not sum to "
                          f"head_dim // 2 = {head_dim // 2}")
-    inv_freq = torch.as_tensor(rope_frequencies(head_dim, theta),
-                               dtype=torch.float32, device=x.device)
+    inv_freq = rope_table(head_dim, theta, x.device)
     angles_all = positions[..., None].float() * inv_freq  # (3, ..., S, hd/2)
-    sec_id = torch.as_tensor(np.repeat(np.arange(3), sections),
-                             device=x.device)
+    sec_id = _once(_SECTION_IDS, (tuple(sections), x.device),
+                   lambda: torch.as_tensor(np.repeat(np.arange(3), sections),
+                                           device=x.device))
     index = sec_id.expand(1, *angles_all.shape[1:])
     return _rotate(x, angles_all.gather(0, index)[0])
 

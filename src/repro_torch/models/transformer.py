@@ -375,18 +375,20 @@ class Transformer(nn.Module):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return x @ head
 
-    def _embed(self, tokens: torch.Tensor, start: int = 0,
-               patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
-        """Token embeddings of positions start.., the patches spliced over
-        the first P, plus the learned position table read % its size."""
+    def _embed(self, tokens: torch.Tensor,
+               patch_embeds: torch.Tensor | None = None,
+               positions: torch.Tensor | None = None) -> torch.Tensor:
+        """Token embeddings, the patches spliced over the first P, plus the
+        learned position table at ``positions`` (B, S) (default arange)
+        read % its size."""
         x = F.embedding(tokens, self.embed)
         if patch_embeds is not None:
             P = patch_embeds.shape[1]
             x = torch.cat([patch_embeds.to(x.dtype), x[:, P:]], dim=1)
         if self.cfg.is_encoder_decoder:
             n_pos = self.pos_embed.shape[0]
-            pos = torch.arange(start, start + tokens.shape[1],
-                               device=tokens.device)
+            pos = (torch.arange(tokens.shape[1], device=tokens.device)
+                   if positions is None else positions.long())
             x = x + self.pos_embed[pos % n_pos]
         return x
 
@@ -505,22 +507,29 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, state: DecodeState, tokens: torch.Tensor, *,
+                    positions: torch.Tensor | None = None,
                     kernels: KernelSet = KERNELS
                     ) -> tuple[torch.Tensor, DecodeState]:
         """One-token decode. tokens (B, 1) -> (logits (B, 1, V), new state).
         KV caches are updated in place (see ``decode_attention``); SSM
-        states are replaced; the cross K/V carry over. ``kernels``: the
-        norms' and the expert FF's functions (the dry run counts a step
-        through ``train_paths(cfg)``)."""
-        x = self._embed(tokens, start=state.step)
+        states are replaced; the cross K/V carry over. ``positions``: the
+        new token's position (B, 1) int32 on the device, ``state.step`` in
+        every row (built here by default: a launch, not a host wait); the
+        rotary angles, the ring slot and mask and the learned position
+        table all read it. ``kernels``: the norms' and the expert FF's
+        functions (the dry run counts a step through ``train_paths(cfg)``)."""
+        if positions is None:
+            positions = torch.full((tokens.shape[0], 1), state.step,
+                                   dtype=torch.int32, device=tokens.device)
+        x = self._embed(tokens, positions=positions)
         cross_kv = state.cross_kv
         caches = []
         for layer, cache, mkv in zip(self.layers, state.caches, cross_kv):
             with obs.span(layer.kind.mixer):
                 h = layer.norm1(x, kernels)
                 if layer.kind.mixer == "attn":
-                    y, cache = attn_mod.decode_attention(layer.attn, self.cfg,
-                                                         h, cache)
+                    y, cache = attn_mod.decode_attention(
+                        layer.attn, self.cfg, h, cache, positions)
                 else:
                     y, cache = mamba_decode_step(layer.mamba, self.cfg, h,
                                                  cache, kernels)

@@ -19,6 +19,14 @@ The spans, and where they are opened:
 - ``train.forward`` (the loss), ``train.backward`` (the gradients, remat's
   recompute included): ``train_step.grads_over_microbatches``;
   ``train.optimizer`` (the update, clipping included): the step itself.
+
+On CUDA, ``serve_step`` replays a captured graph of the decode step
+(``serve.engine``). ``decode`` still opens on every step, but the
+per-layer spans inside it (``attn``, ``mamba``, ``ff``, ``moe``, ``head``)
+open only while the step is captured: a replayed step issues one
+``cudaGraphLaunch`` and its kernels find no per-layer span, so per-layer
+host time no longer splits a replayed step, and the device operations a
+``decode`` span counts are those of that one launch.
 """
 
 from __future__ import annotations

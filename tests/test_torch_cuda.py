@@ -951,3 +951,111 @@ class TestCudaTrain:
         for k, v in got["cpu"][2].items():
             np.testing.assert_allclose(got["cuda"][2][k].numpy(), v.numpy(),
                                        atol=2.1e-3, err_msg=k)
+
+
+def _graph_case(arch: str, device):
+    """(config, model, dtype, extras of a batch) for the decode graph's card
+    tests: danube at its own widths (two layers, a 24-slot window so the
+    ring wraps) in float32, jamba's smoke hybrid in bfloat16, and the other
+    smoke architectures in float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer
+
+    if arch == "danube-width":
+        cfg = dataclasses.replace(get_config("h2o-danube-1.8b"), n_layers=2,
+                                  sliding_window=24)
+    else:
+        cfg = get_config(arch, smoke=True)
+    dtype = torch.bfloat16 if arch == "jamba-v0.1-52b" else torch.float32
+    model = Transformer(cfg, device=device, dtype=dtype,
+                        generator=torch.Generator(device=device).manual_seed(0))
+    return cfg, model, dtype
+
+
+def _graph_extras(cfg, batch: int, gen, device) -> dict:
+    if not cfg.is_encoder_decoder:
+        return {}
+    return {"encoder_frames": torch.randn(
+        (batch, cfg.encoder_seq, cfg.d_model), device=device,
+        generator=gen) * 0.02}
+
+
+GRAPH_ARCHS = ["danube-width", "jamba-v0.1-52b", "mamba2-780m",
+               "qwen3-moe-30b-a3b", "whisper-base", "qwen2-vl-7b"]
+
+
+@pytest.mark.cuda
+class TestCudaDecodeGraph:
+    """``ServeEngine.serve_step`` on the card replays one captured CUDA
+    graph per step: one engine serves two batches of different prompt
+    lengths (the second copied into the graph's static state), 32 steps
+    each; every step's token is the eager ``decode_step``'s and its logits
+    agree (1e-5 relative in float32, the bf16 bar in bfloat16); one layout,
+    one capture; each step counts an eager step's kernel launches."""
+
+    STEPS_PER_BATCH = 32
+
+    @pytest.mark.parametrize("arch", GRAPH_ARCHS)
+    def test_graph_steps_match_eager(self, cuda, arch):
+        from repro_torch.models import kernel_launches
+        from repro_torch.serve import ServeEngine
+        from repro_torch.serve import engine as engine_mod
+
+        cfg, model, dtype = _graph_case(arch, cuda)
+        eng = ServeEngine(cfg, model, max_seq=64, device=cuda)
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        one, none = kernel_launches(cfg, 1), kernel_launches(cfg, 0)
+        per_step = {k: one[k] - none[k] for k in one}
+        steps0 = dict(engine_mod.STEPS)
+        for prompt in (10, 20):
+            toks = torch.randint(0, cfg.vocab_size, (2, prompt), device=cuda,
+                                 generator=gen)
+            extras = _graph_extras(cfg, 2, gen, cuda)
+            logits, state = eng.prefill_batch(toks, **extras)
+            _, twin = model.prefill(toks, max_seq=64, **extras)
+            tok = logits.argmax(-1, keepdim=True)
+            for _ in range(self.STEPS_PER_BATCH):
+                before = dict(t_ops.LAUNCHES)
+                logits, state = eng.serve_step(state, tok)
+                assert {k: t_ops.LAUNCHES[k] - before[k]
+                        for k in per_step} == per_step
+                want, twin = model.decode_step(twin, tok)
+                want = want[:, 0]
+                torch.cuda.synchronize()
+                nxt = logits.argmax(-1, keepdim=True)
+                assert torch.equal(nxt, want.argmax(-1, keepdim=True))
+                got, want = (x.float().cpu().numpy() for x in (logits, want))
+                tol = (dict(rtol=1e-5, atol=1e-5 * float(np.abs(want).max()))
+                       if dtype == torch.float32 else _tol("bfloat16"))
+                np.testing.assert_allclose(got, want, **tol)
+                tok = nxt
+            assert state.step == twin.step == prompt + self.STEPS_PER_BATCH
+        steps = {k: engine_mod.STEPS[k] - steps0[k] for k in steps0}
+        assert steps == {"captures": 1,
+                         "replays": 2 * self.STEPS_PER_BATCH - 1,
+                         "eager_steps": 0}
+        assert len(eng._graphs) == 1
+
+    def test_a_replayed_step_waits_on_nothing(self, cuda):
+        """A profiled step after the capture: one ``cudaGraphLaunch`` and
+        no ``cudaStreamSynchronize``."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from repro_torch.serve import ServeEngine
+
+        cfg, model, _ = _graph_case("danube-width", cuda)
+        eng = ServeEngine(cfg, model, max_seq=64, device=cuda)
+        toks = torch.randint(0, cfg.vocab_size, (2, 12), device=cuda)
+        logits, state = eng.prefill_batch(toks)
+        for _ in range(2):
+            logits, state = eng.serve_step(state, logits.argmax(-1,
+                                                                keepdim=True))
+        tok = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.serve_step(state, tok)
+        torch.cuda.synchronize()
+        calls = {e.key: e.count for e in prof.key_averages()}
+        assert calls.get("cudaGraphLaunch") == 1, sorted(calls)
+        assert "cudaStreamSynchronize" not in calls
