@@ -11,8 +11,8 @@ prefill) and every gap between tokens on the device's clock.
 
 Afterwards the peak memory is read, the engine freed, and a sample of the
 finished batches, drawn from the seed and holding the longest, is judged
-against the plain reference (``reference.judge``): the cell's ``limits``
-name the numbers it holds.
+against the family's plain reference (its ``served_logits``) by
+``reference.judge``: the cell's ``limits`` name the numbers it holds.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ from bench.harness import port
 from bench.harness.record import Run, window
 from bench.harness.trace import Tracer
 from bench.harness.weights import group_seed
-from bench.reference import judge, lm
+from bench.reference import judge
 from bench.traffic.serve import ServeTraffic
 
 WARM_STEPS = 2  # decode steps warmed per shape
@@ -87,7 +87,7 @@ def run(run: Run, device, t_start: float) -> None:
     cfg, wl = run.config, run.workload
     cuda = device.type == "cuda"
     port.set_precision(cfg)
-    pc, model = port.build_model(cfg, run.seed, device)
+    pc, model = port.build_model(cfg, run.family, run.seed, device)
     traffic = ServeTraffic(wl["traffic"], run.seed, pc.vocab_size, device)
     engine = ServeEngine(pc, model, max_seq=traffic.max_len, device=device)
 
@@ -161,8 +161,8 @@ def run(run: Run, device, t_start: float) -> None:
         toks = r["tokens"].to(device)
         batches.append((torch.cat([b.tokens, toks[:, :-1]], dim=1), b.prompt))
         served.append(toks)
-    refs = lm.served_logits(cfg, port.draw_fn(cfg, run.seed, device),
-                            batches)
+    refs = run.family.served_logits(
+        cfg, port.draw_fn(cfg, run.family, run.seed, device), batches)
     nums = judge.gap_numbers(refs, served)
     run.counts.update(judged_batches=[done[j][0].index for j in picks],
                       judged_tokens=nums.pop("judged_tokens"),

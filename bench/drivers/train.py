@@ -8,7 +8,8 @@ after step 1 over 1 - b1) and the per-leaf norms of the weights' change
 after the last judged step. The window then runs more steps on the same
 state while its time lasts and ends with a sync. Afterwards the peak
 memory is read, the state freed, and the plain reference trains the same
-steps from the seed's weights (``reference.train``).
+steps from the seed's weights (``reference.train`` with the family's
+loss).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import time
 
 import torch
 
-from bench.harness import port, weights
+from bench.harness import port
 from bench.harness.record import Run, window
 from bench.harness.trace import Tracer
 from bench.harness.weights import group_seed
@@ -41,7 +42,7 @@ def run(run: Run, device, t_start: float) -> None:
     rec, t = wl["recipe"], wl["traffic"]
     cuda = device.type == "cuda"
     port.set_precision(cfg)
-    pc, model = port.build_model(cfg, run.seed, device)
+    pc, model = port.build_model(cfg, run.family, run.seed, device)
     opt = adamw(rec["lr"], b1=rec["b1"], b2=rec["b2"], eps=rec["eps"],
                 weight_decay=rec["weight_decay"],
                 max_grad_norm=rec["max_grad_norm"])
@@ -60,10 +61,9 @@ def run(run: Run, device, t_start: float) -> None:
             "grad": {k: float(v) for k, v in grad_norm.items()},
             "change": {}}
     with torch.no_grad():
-        dtype = getattr(torch, cfg["dtype"])
-        for g in weights.groups(cfg["model"]):
-            for n, t0 in weights.draw(cfg["model"], dtype, run.seed, g,
-                                      device).items():
+        draw = port.draw_fn(cfg, run.family, run.seed, device)
+        for g in run.family.groups(cfg["model"]):
+            for n, t0 in draw(g).items():
                 prog["change"][n] = float(
                     (state.params[n].float() - t0.float()).norm())
     if cuda:
@@ -101,7 +101,8 @@ def run(run: Run, device, t_start: float) -> None:
 
     t_judge = time.perf_counter()
     data = [batch(run, pc.vocab_size, i, device) for i in range(n_judged)]
-    ref = ref_train.steps(cfg, port.draw_fn(cfg, run.seed, device),
+    ref = ref_train.steps(cfg, run.family,
+                          port.draw_fn(cfg, run.family, run.seed, device),
                           [(b["tokens"], b["labels"]) for b in data], rec)
     nums = ref_train.numbers(prog, ref)
     run.counts.update(losses=prog["loss"], ref_losses=ref["loss"],

@@ -1,12 +1,14 @@
 """A cell and everything it is made of, found by name.
 
 ``workloads/<cell>.json`` names the configuration, the driver and the
-traffic; ``configs/<config>.json`` holds the configuration as it is run;
+traffic; ``configs/<config>.json`` holds the configuration as it is run
+and names its model family (``family_module``); ``families/<family>.py``
+is the family's weight list, plain reference and counts (``FAMILY``);
 ``drivers/<driver>.py`` is the window loop for one kind of work; each
 metric that ``BENCHMARK.json`` assigns to the cell is read by
 ``metrics/<metric>.py`` (a function ``read(run) -> float | None``). A
-later cell, configuration or metric is new files and new entries in
-``BENCHMARK.json``; nothing here names one.
+later cell, configuration, family or metric is new files and new entries
+in ``BENCHMARK.json``; nothing here names one.
 """
 
 from __future__ import annotations
@@ -21,6 +23,11 @@ from typing import Callable
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
+
+#: what a family module defines (``bench/families/lm.py`` documents each);
+#: it may add ``INITS``, init kinds of its own (``harness.weights``)
+FAMILY = ("groups", "group_specs", "served_logits", "loss_fn",
+          "prefill_flops", "decode_flops", "train_flops", "layer_calls")
 
 
 def load_json(path: Path) -> dict:
@@ -41,6 +48,7 @@ class Cell:
     name: str
     workload: dict
     config: dict
+    family: ModuleType
     driver: ModuleType
     metrics: list[Metric]
 
@@ -49,16 +57,41 @@ class Cell:
         return int(self.workload.get("chips", 1))
 
 
+def _module(path: Path, kind: str, name: str) -> ModuleType:
+    """The file ``path`` imported afresh as a module of its own."""
+    mod_name = f"bench_{kind}_" + "".join(c if c.isalnum() else "_"
+                                          for c in name)
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _reader(bench: Path, name: str) -> Callable:
     path = bench / "metrics" / f"{name}.py"
     if not path.is_file():
         raise FileNotFoundError(f"metric {name!r} has no reader {path}")
-    mod_name = "bench_metric_" + "".join(c if c.isalnum() else "_"
-                                         for c in name)
-    spec = importlib.util.spec_from_file_location(mod_name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _module(path, "metric", name).read
+
+
+def load_family(config: dict, root: Path = ROOT) -> ModuleType:
+    """The module ``bench/families/<family_module>.py`` under ``root``;
+    raises, naming the configuration, the module and what it lacks,
+    unless it defines every function of ``FAMILY``."""
+    name = config.get("family_module")
+    if not isinstance(name, str):
+        raise ValueError(f"configuration {config.get('name')!r} names no "
+                         f"family_module")
+    path = root / "bench" / "families" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"configuration {config.get('name')!r} "
+                                f"names the family {name!r}: no {path}")
+    mod = _module(path, "family", name)
+    missing = [f for f in FAMILY if not callable(getattr(mod, f, None))]
+    if missing:
+        raise ValueError(f"configuration {config.get('name')!r}: the family "
+                         f"module {path} lacks {', '.join(missing)}")
+    return mod
 
 
 def cell_metrics(benchmark: dict, cell: str, bench: Path) -> list[Metric]:
@@ -85,5 +118,5 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     config = load_json(bench / "configs" / f"{workload['config']}.json")
     driver = importlib.import_module(f"bench.drivers.{workload['driver']}")
     benchmark = load_json(root / "BENCHMARK.json")
-    return Cell(name, workload, config, driver,
+    return Cell(name, workload, config, load_family(config, root), driver,
                 cell_metrics(benchmark, name, bench))

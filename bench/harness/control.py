@@ -22,7 +22,7 @@ import torch
 
 from bench.harness import port
 from bench.harness.record import Run, within
-from bench.reference import judge, lm
+from bench.reference import judge
 from bench.reference import train as ref_train
 
 #: readings that must come out not correct
@@ -41,13 +41,14 @@ def serve_readings(run: Run, device) -> tuple[dict, dict]:
     """({kind: numbers}, {kind: every judged token's gap}) of the program,
     the control and, for a bf16 configuration, the witness."""
     cfg, j = run.config, run.judged
-    draw = port.draw_fn(cfg, run.seed, device)
+    draw = port.draw_fn(cfg, run.family, run.seed, device)
     modes = {"control": control_precision(cfg)}
     if cfg["dtype"] == "bfloat16":
         modes["witness"] = "bf16"
     gaps = {"program": judge.gaps(j["refs"], j["served"])}
     for kind, mode in modes.items():
-        other = lm.served_logits(cfg, draw, j["batches"], precision=mode)
+        other = run.family.served_logits(cfg, draw, j["batches"],
+                                         precision=mode)
         gaps[kind] = judge.gaps(j["refs"], [o.argmax(-1) for o in other])
         del other
     nums = {k: judge.numbers_of(g) for k, g in gaps.items()}
@@ -58,13 +59,14 @@ def train_readings(run: Run, device) -> tuple[dict, dict]:
     """({kind: numbers}, {}) of the program, the control, half of each
     batch, and a state left unchanged."""
     cfg, j, rec = run.config, run.judged, run.workload["recipe"]
-    draw = port.draw_fn(cfg, run.seed, device)
+    fam = run.family
+    draw = port.draw_fn(cfg, fam, run.seed, device)
     data = [(b["tokens"], b["labels"]) for b in j["data"]]
-    ctl = ref_train.steps(cfg, draw, data, rec,
+    ctl = ref_train.steps(cfg, fam, draw, data, rec,
                           precision=control_precision(cfg))
     half = [(t[: t.shape[0] // 2], lab[: lab.shape[0] // 2])
             for t, lab in data]
-    hb = ref_train.steps(cfg, draw, half, rec)
+    hb = ref_train.steps(cfg, fam, draw, half, rec)
 
     def num(got):
         return {k: v for k, v in ref_train.numbers(got, j["ref"]).items()

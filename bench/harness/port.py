@@ -1,10 +1,12 @@
 """The program under test, built from a configuration file: the port's
 own config with the file's cuts applied, checked against every size the
-file states, and its model filled with the seed's weights."""
+file states, and its model filled with the seed's weights from the
+configuration's family's weight list."""
 
 from __future__ import annotations
 
 import dataclasses
+from types import ModuleType
 
 import torch
 
@@ -43,20 +45,21 @@ def set_precision(cfg: dict) -> None:
     torch.backends.cudnn.allow_tf32 = bool(cfg["tf32"])
 
 
-def build_model(cfg: dict, seed: int, device):
+def build_model(cfg: dict, family: ModuleType, seed: int, device):
     """(port config, ``Transformer`` on ``device`` holding the seed's
-    weights); no weight is drawn by the program."""
+    weights, drawn by ``family``'s list); no weight is drawn by the
+    program."""
     from repro_torch.models import Transformer
 
     pc = port_config(cfg)
     dtype = getattr(torch, cfg["dtype"])
     model = Transformer(pc, device="meta", dtype=dtype).to_empty(device=device)
-    weights.fill(model, cfg["model"], dtype, seed)
+    weights.fill(model, family, cfg["model"], dtype, seed)
     return pc, model
 
 
-def draw_fn(cfg: dict, seed: int, device):
+def draw_fn(cfg: dict, family: ModuleType, seed: int, device):
     """The reference's view of the weights: any group, drawn afresh."""
     dtype = getattr(torch, cfg["dtype"])
-    return lambda group: weights.draw(cfg["model"], dtype, seed, group,
-                                      device)
+    return lambda group: weights.draw(family, cfg["model"], dtype, seed,
+                                      group, device)

@@ -1,10 +1,11 @@
 """Shared arithmetic of the metric readers in ``bench/metrics/``: the
-traced phases' model FLOPs and kernel bounds. A reader returns None where
-its phase or kernel is absent from the trace."""
+traced phases' model FLOPs and kernel bounds, from the counts of the
+cell's family (``run.family``). A reader returns None where its phase or
+kernel is absent from the trace."""
 
 from __future__ import annotations
 
-from bench.roofline import counts, peaks
+from bench.roofline import peaks
 
 
 def phase(run, name: str):
@@ -17,15 +18,15 @@ def phase(run, name: str):
 
 
 def phase_flops(run, name: str) -> float:
-    cfg, p = run.config, run.trace.phases[name]
+    cfg, p, fam = run.config, run.trace.phases[name], run.family
     if name == "prefill":
-        return sum(counts.prefill_flops(cfg, x["batch"], x["prompt"])
+        return sum(fam.prefill_flops(cfg, x["batch"], x["prompt"])
                    for x in p.metas)
     if name == "decode":
-        return sum(counts.decode_flops(cfg, x["batch"], x["prompt"] + x["start"] + s)
+        return sum(fam.decode_flops(cfg, x["batch"], x["prompt"] + x["start"] + s)
                    for x in p.metas for s in range(x["steps"]))
     if name == "train":
-        return sum(x["steps"] * counts.train_flops(cfg, x["batch"], x["seq"])
+        return sum(x["steps"] * fam.train_flops(cfg, x["batch"], x["seq"])
                    for x in p.metas)
     raise ValueError(name)
 
@@ -62,7 +63,8 @@ def roofline_pct(run, name: str, kernel: str, prefix: str) -> float | None:
     least, calls = 0.0, 0
     for x in p.metas:
         steps = x.get("steps", 1) if name == "decode" else 1
-        per = counts.layer_calls(cfg, x["batch"], x["prompt"], name)[kernel]
+        per = run.family.layer_calls(cfg, x["batch"], x["prompt"],
+                                     name)[kernel]
         least += steps * sum(peaks.least_seconds(f, b, _dtype(cfg))
                              for f, b in per)
         calls += steps * len(per)

@@ -43,6 +43,11 @@ class Run:
     def workload(self) -> dict:
         return self.cell.workload
 
+    @property
+    def family(self):
+        """The configuration's model family (``bench/families/``)."""
+        return self.cell.family
+
     def hold(self, numbers: dict, limits: dict) -> None:
         """Compare the numbers the cell's ``limits`` name."""
         for name, limit in limits.items():

@@ -1,12 +1,18 @@
-"""Plain float32 reference of the served models: dense GQA transformers
+"""Plain float32 building blocks of the served models, from the
+configuration's sizes alone: RMSNorm, rotary embedding, causal (windowed)
+GQA attention, the Mamba-2 mixer and its SSD scan, SwiGLU, MoE with GShard
+capacity, and the teacher-forced forward and training loss that stack a
+family's layers. A family (``bench/families/``) composes its layers from
+these and hands its weight groups and layer function to ``served_logits``
+and ``loss``; the ``lm`` family builds dense GQA transformers
 (h2o-danube) and the Mamba-2 / attention / MoE hybrid (jamba as the port
-configures it), from the configuration's sizes alone.
+configures it) from them.
 
 No kernel, no cache, no batching tricks: a teacher-forced forward over
 prompt + served tokens, layer by layer (each layer's weights drawn afresh
-from the seed by ``weights``, then freed), that returns the logits at the
-positions that produced served tokens. Two things the configuration
-states are modelled because they define the served model:
+from the seed, then freed), that returns the logits at the positions that
+produced served tokens. Two things the configuration states are modelled
+because they define the served model:
 
 - ``cache_dtype``: a decode step reads keys and values from a cache of
   that dtype, so queries past the prompt attend over keys and values
@@ -28,7 +34,6 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from bench.harness.weights import groups, layer_kind
 from bench.reference.precision import Arith
 
 Q_BLOCK = 256  # query rows of one attention block
@@ -59,14 +64,25 @@ def attention(x, w, m, S, cache_dtype, ar: Arith):
     q = ar.mm(x, w["attn.wq"]).view(B, L, H, D)
     k = ar.mm(x, w["attn.wk"]).view(B, L, Hkv, D)
     v = ar.mm(x, w["attn.wv"]).view(B, L, Hkv, D)
+    out = attend(q, k, v, m, S, cache_dtype, ar)
+    return ar.mm(out.view(B, L, H * D), w["attn.wo"])
+
+
+def attend(q, k, v, m, S, cache_dtype, ar: Arith):
+    """Rotary positions (where ``rope_theta``), then causal (windowed)
+    attention of q (B, L, H, D) over k, v (B, L, Hkv, D): queries at
+    positions >= S read k, v rounded to ``cache_dtype``. -> (B, L, Hkv,
+    H // Hkv, D)."""
+    B, L, H, D = q.shape
+    Hkv = k.shape[2]
     if m["rope_theta"]:
-        pos = torch.arange(L, device=x.device)
+        pos = torch.arange(L, device=q.device)
         q, k = rope(q, pos, m["rope_theta"]), rope(k, pos, m["rope_theta"])
     kc = k.to(cache_dtype).float()
     vc = v.to(cache_dtype).float()
     win = m.get("sliding_window")
     qg = q.view(B, L, Hkv, H // Hkv, D)
-    out = torch.empty(B, L, Hkv, H // Hkv, D, device=x.device)
+    out = torch.empty(B, L, Hkv, H // Hkv, D, device=q.device)
     starts = [(a, min(a + Q_BLOCK, end), kk, vv)
               for lo, end, kk, vv in ((0, S, k, v), (S, L, kc, vc))
               for a in range(lo, end, Q_BLOCK)]
@@ -74,14 +90,14 @@ def attention(x, w, m, S, cache_dtype, ar: Arith):
         k0 = 0 if win is None else max(0, q0 - win + 1)
         s = ar.einsum("bqhgd,bkhd->bhgqk", qg[:, q0:q1], kk[:, k0:q1])
         s = s / math.sqrt(D)
-        qp = torch.arange(q0, q1, device=x.device)[:, None]
-        kp = torch.arange(k0, q1, device=x.device)[None, :]
+        qp = torch.arange(q0, q1, device=q.device)[:, None]
+        kp = torch.arange(k0, q1, device=q.device)[None, :]
         keep = kp <= qp
         if win is not None:
             keep &= kp > qp - win
         p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
         out[:, q0:q1] = ar.einsum("bhgqk,bkhd->bqhgd", p, vv[:, k0:q1])
-    return ar.mm(out.view(B, L, H * D), w["attn.wo"])
+    return out
 
 
 def ssd(x, dt, A, Bm, Cm):
@@ -198,38 +214,34 @@ def moe(x, w, m, S, ar: Arith):
     return out
 
 
-def layer(x, w, m, i, S, cache_dtype, ar: Arith):
-    """Pre-norm layer i over x (B, L, d); the first S positions are the
-    prompt (see the module's note on the cache)."""
-    mixer, ff = layer_kind(m, i)
-    h = rmsnorm(x, w["norm1.scale"], m["norm_eps"])
-    x = x + (attention(h, w, m, S, cache_dtype, ar) if mixer == "attn"
-             else mamba(h, w, m, ar))
-    h = rmsnorm(x, w["norm2.scale"], m["norm_eps"])
-    return x + (swiglu(h, w["ff.w_gate"], w["ff.w_up"], w["ff.w_down"], ar)
-                if ff == "dense" else moe(h, w, m, S, ar))
-
-
 def local(group_weights: dict) -> dict:
     """A layer's weights under their names inside the layer."""
     return {n.split(".", 2)[-1] if n.startswith("layers.") else n: t
             for n, t in group_weights.items()}
 
 
-def served_logits(cfg: dict, seed_weights: Callable[[str], dict],
+#: a family's layer: (x (B, L, d), its weights by local name, the model's
+#: sizes, layer index, prompt length S, cache dtype, Arith) -> x
+Layer = Callable[..., torch.Tensor]
+
+
+def served_logits(cfg: dict, groups: list[str], layer: Layer,
+                  seed_weights: Callable[[str], dict],
                   batches: list[tuple[torch.Tensor, int]],
                   precision: str = "float32") -> list[torch.Tensor]:
     """For each (tokens (B, L), prompt length S): the float32 logits
     (B, L - S + 1, V) at positions S-1 .. L-1, the positions whose
-    argmax a greedy server emits. ``seed_weights(group)`` gives a
-    group's weights (``harness.weights.groups``) in their served dtype."""
+    argmax a greedy server emits. ``groups`` are the family's weight
+    groups in order ("embed", "layers.<i>", ..., "head"), ``layer`` its
+    layer, ``seed_weights(group)`` a group's weights in their served
+    dtype."""
     m = cfg["model"]
     cache_dtype = getattr(torch, cfg["cache_dtype"])
     ar = Arith(precision)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     hs: list = [None] * len(batches)
-    for gname in groups(m):
+    for gname in groups:
         w = {n: t.float() for n, t in local(seed_weights(gname)).items()}
         for j, (tokens, S) in enumerate(batches):
             if gname == "embed":
@@ -243,3 +255,21 @@ def served_logits(cfg: dict, seed_weights: Callable[[str], dict],
                               cache_dtype, ar)
         del w
     return hs
+
+
+def loss(cfg: dict, layer: Layer, p: dict, tokens: torch.Tensor,
+         labels: torch.Tensor, ar: Arith) -> torch.Tensor:
+    """Mean next-token cross-entropy of the whole sequence through the
+    family's ``layer``, from the float32 weights ``p`` by their names."""
+    m = cfg["model"]
+    L = tokens.shape[1]
+    cache_dtype = getattr(torch, cfg["cache_dtype"])
+    x = p["embed"][tokens]
+    for i in range(m["n_layers"]):
+        pre = f"layers.{i}."
+        w = {k[len(pre):]: v for k, v in p.items() if k.startswith(pre)}
+        x = layer(x, w, m, i, L, cache_dtype, ar)
+    x = rmsnorm(x, p["final_norm.scale"], m["norm_eps"])
+    logits = ar.mm(x, p["lm_head"])
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1))

@@ -1,7 +1,8 @@
-"""Plain float32 reference of a training step: the served model's forward
-(``reference.lm``) over the whole sequence, mean next-token cross-entropy,
-autograd, clipping by the global norm, AdamW. It starts from the seed's
-weights drawn afresh and takes the same token batches as the program.
+"""Plain float32 reference of a training step: the family's loss
+(``loss_fn``: its served model's forward over the whole sequence, mean
+next-token cross-entropy), autograd, clipping by the global norm, AdamW.
+It starts from the seed's weights drawn afresh and takes the same token
+batches as the program.
 
 AdamW as the configuration's recipe states it: gradients clipped to
 ``max_grad_norm`` by their global norm (floored at 1e-9), moments in
@@ -12,35 +13,19 @@ dimensions, a constant learning rate.
 
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Callable
 
 import torch
-import torch.nn.functional as F
 
-from bench.harness.weights import groups
-from bench.reference import lm
 from bench.reference.precision import Arith
 
 
-def loss_fn(cfg: dict, p: dict, tokens: torch.Tensor, labels: torch.Tensor,
-            ar: Arith) -> torch.Tensor:
-    m = cfg["model"]
-    L = tokens.shape[1]
-    cache_dtype = getattr(torch, cfg["cache_dtype"])
-    x = p["embed"][tokens]
-    for i in range(m["n_layers"]):
-        pre = f"layers.{i}."
-        w = {k[len(pre):]: v for k, v in p.items() if k.startswith(pre)}
-        x = lm.layer(x, w, m, i, L, cache_dtype, ar)
-    x = lm.rmsnorm(x, p["final_norm.scale"], m["norm_eps"])
-    logits = ar.mm(x, p["lm_head"])
-    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                           labels.reshape(-1))
-
-
-def steps(cfg: dict, seed_weights: Callable[[str], dict], batches: list,
-          recipe: dict, precision: str = "float32") -> dict:
-    """Train from the seed's weights on ``batches`` [(tokens, labels)]:
+def steps(cfg: dict, family: ModuleType,
+          seed_weights: Callable[[str], dict], batches: list, recipe: dict,
+          precision: str = "float32") -> dict:
+    """Train the family's model (its ``groups`` and ``loss_fn``) from the
+    seed's weights on ``batches`` [(tokens, labels)]:
     {"loss": [per step], "grad": {leaf: norm of step 1's clipped
     gradient}, "change": {leaf: norm of the weights' change after the
     last step}}."""
@@ -49,7 +34,7 @@ def steps(cfg: dict, seed_weights: Callable[[str], dict], batches: list,
     ar = Arith(precision)
     m = cfg["model"]
     p = {}
-    for g in groups(m):
+    for g in family.groups(m):
         p.update({n: t.float() for n, t in seed_weights(g).items()})
     for t in p.values():
         t.requires_grad_(True)
@@ -59,7 +44,7 @@ def steps(cfg: dict, seed_weights: Callable[[str], dict], batches: list,
     lr, wd = recipe["lr"], recipe["weight_decay"]
     out: dict = {"loss": []}
     for step, (tokens, labels) in enumerate(batches, start=1):
-        loss = loss_fn(cfg, p, tokens, labels, ar)
+        loss = family.loss_fn(cfg, p, tokens, labels, ar)
         grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
         out["loss"].append(float(loss.detach()))
         with torch.no_grad():
@@ -81,7 +66,7 @@ def steps(cfg: dict, seed_weights: Callable[[str], dict], batches: list,
     del mu, nu
     with torch.no_grad():
         out["change"] = {}
-        for g in groups(m):
+        for g in family.groups(m):
             for n, t0 in seed_weights(g).items():
                 out["change"][n] = float((p[n] - t0.float()).norm())
     return out

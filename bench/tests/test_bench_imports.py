@@ -1,5 +1,5 @@
-"""The benchmark imports neither JAX nor the JAX package, its references
-and traffic import nothing of the program, and nothing reads the JAX
+"""The benchmark imports neither JAX nor the JAX package, its references,
+families and traffic import nothing of the program, and nothing reads the JAX
 package's ``benchmarks/``. Module names are compared whole: the port
 ``repro_torch`` is not the JAX package ``repro``."""
 
@@ -11,7 +11,7 @@ import pytest
 BENCH = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
 PROGRAM = {"repro_torch"}
-INDEPENDENT = ("reference", "traffic")
+INDEPENDENT = ("reference", "traffic", "families")
 
 
 def modules():
@@ -54,3 +54,25 @@ def test_whole_name_comparison():
     assert not imported(tree) & FORBIDDEN
     assert imported(ast.parse("from repro.serve import r")) & FORBIDDEN
     assert imported(ast.parse("import jax.numpy as jnp")) & FORBIDDEN
+
+
+def test_only_families_reach_a_models_code():
+    """Drivers, the harness, readers and references reach a model only
+    through the cell's family: none imports the ``lm`` family's blocks or
+    counts by module, or names its ``layer_kind``."""
+    paths = [BENCH / "run.py", BENCH / "calibrate.py"] + [
+        p for d in ("drivers", "harness", "metrics", "reference")
+        for p in sorted((BENCH / d).glob("*.py"))]
+    for path in paths:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and node.module:
+                mods = {node.module} | {f"{node.module}.{a.name}"
+                                        for a in node.names}
+                assert not mods & {"bench.reference.lm",
+                                   "bench.roofline.counts"}, (path, mods)
+            if isinstance(node, ast.Import):
+                assert not {a.name for a in node.names} & {
+                    "bench.reference.lm", "bench.roofline.counts"}, path
+            name = getattr(node, "id", None) or getattr(node, "attr", None)
+            assert name != "layer_kind", path

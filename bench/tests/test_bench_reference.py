@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from bench.harness import port
+from bench.harness.cell import load_family
 from bench.reference import lm
 from bench.reference import train as ref_train
 
@@ -37,7 +38,7 @@ def served(cfg: dict, device, B=2, S=40, new=6, seed=7):
     and the prompt."""
     from repro_torch.serve import ServeEngine
 
-    pc, model = port.build_model(cfg, seed, device)
+    pc, model = port.build_model(cfg, load_family(cfg), seed, device)
     eng = ServeEngine(pc, model, max_seq=S + new, device=device)
     g = torch.Generator(device=device).manual_seed(1)
     prompt = torch.randint(0, pc.vocab_size, (B, S), generator=g,
@@ -52,9 +53,10 @@ def served(cfg: dict, device, B=2, S=40, new=6, seed=7):
 
 
 def reference(cfg, device, prompt, toks, seed=7, precision="float32"):
-    (ref,) = lm.served_logits(cfg, port.draw_fn(cfg, seed, device),
-                              [(torch.cat([prompt, toks[:, :-1]], 1),
-                                prompt.shape[1])], precision)
+    fam = load_family(cfg)
+    (ref,) = fam.served_logits(cfg, port.draw_fn(cfg, fam, seed, device),
+                               [(torch.cat([prompt, toks[:, :-1]], 1),
+                                 prompt.shape[1])], precision)
     return ref
 
 
@@ -135,7 +137,8 @@ def _train_matches(device):
                      / "danube-train.json").read_text())
     rec = wl["recipe"]
     cfg = config("danube-smoke")
-    pc, model = port.build_model(cfg, 3, device)
+    fam = load_family(cfg)
+    pc, model = port.build_model(cfg, fam, 3, device)
     opt = adamw(rec["lr"], b1=rec["b1"], b2=rec["b2"], eps=rec["eps"],
                 weight_decay=rec["weight_decay"],
                 max_grad_norm=rec["max_grad_norm"])
@@ -153,10 +156,11 @@ def _train_matches(device):
         if i == 0:
             grad = {k: float(v.norm() / (1 - rec["b1"]))
                     for k, v in state.opt.mu.items()}
-    ref = ref_train.steps(cfg, port.draw_fn(cfg, 3, device), data, rec)
+    ref = ref_train.steps(cfg, fam, port.draw_fn(cfg, fam, 3, device), data,
+                          rec)
     assert ref_train.loss_gap(losses, ref["loss"]) < 1e-5
     assert ref_train.worst_leaf_gap(grad, ref["grad"])[0] < 1e-4
-    p0 = port.draw_fn(cfg, 3, device)
+    p0 = port.draw_fn(cfg, fam, 3, device)
     change = {}
     with torch.no_grad():
         for gname in ("embed", "layers.0", "layers.1", "head"):
