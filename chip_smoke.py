@@ -26,12 +26,13 @@ Phases (any failure ends the script with a non-zero exit):
    before every launch: flash attention (danube f32/bf16, a window, ragged
    S=96, qwen3's D=128 bf16; timed: danube f32 and bf16, qwen3 bf16),
    RMSNorm (prefill, decode and odd widths; timed: every served prefill
-   shape and one decode shape, ``NORM_TIMED``), the SSD scan (mamba2-780m's
-   prefill, the reference sweep in f32 and bf16, ragged S, an initial
-   state; timed: the prefill and a 4096-token prompt, ``SSD_TIMED``) and
-   the grouped matmul (qwen3's prefill and decode shapes in
-   bf16 and f32, the reference sweep; timed: the four bf16 prefill and
-   decode gate/up and down shapes).
+   shape and one decode shape, ``NORM_TIMED``; nemotron's groups of 512,
+   ``NORM_NEMOTRON``), the SSD scan (mamba2-780m's prefill, the reference
+   sweep in f32 and bf16, ragged S, an initial state, nemotron's 8 B/C
+   groups, ``SSD_NEMOTRON``; timed: the prefill and a 4096-token prompt,
+   ``SSD_TIMED``) and the grouped matmul (qwen3's prefill and decode
+   shapes in bf16 and f32, jamba's and nemotron's, the reference sweep;
+   timed: every bf16 prefill and decode shape but the sweep).
    Tolerances are those of tests/test_kernels.py.
 3. Drive the three served paths through ``repro_torch.launch.serve.main``,
    each at full width, routing one request and generating (4, 16) tokens
@@ -135,7 +136,8 @@ Phases (any failure ends the script with a non-zero exit):
    ``jamba-v0.1-52b`` bf16 at 16 of its 32 layers
    (the full model's 103 GB do not fit the card) through ``ServeEngine``,
    its attention and MoE (2e-2) and SSD scans (y 5e-2, state 5e-3) layer
-   by layer; warm prefill and decode times with the card's name and power
+   by layer; ``nemotron-3-nano-30b-a3b`` bf16 whole (63.2 GB) through
+   ``ServeEngine``, layer by layer likewise; warm prefill and decode times with the card's name and power
    limit; then card == CPU on the three smoke configs (logits within 1e-4,
    greedy tokens equal). ``--profile`` adds each path's prefill and decode
    breakdown.
@@ -234,6 +236,11 @@ SSD_TIMED = [("main", BATCH, PROMPT, 48, 64, 128, 256),
              ("long prompt", 1, 4096, 48, 64, 128, 256)]
 # jamba-v0.1-52b's Mamba layers at prefill, bf16: H 128, P 64, N 16
 SSD_JAMBA = ("jamba", BATCH, PROMPT, 128, 64, 16, 128)
+# nemotron-3-nano's at nemotron-reasoning's largest prefill (label, B, S,
+# H, P, N, chunk, B/C groups), and its grouped gated norm's shapes there
+# and at a decode step
+SSD_NEMOTRON = ("nemotron", 32, 384, 64, 64, 128, 128, 8)
+NORM_NEMOTRON = [(32, 4096), (12288, 4096)]
 # Timed flash shapes of the model branches (label, B, Sq, Sk, H, Hkv, D,
 # causal, dtype name): whisper's encoder self-attention, its cross
 # attention at prefill (Sk 1500: a ragged last key tile) and, off the path,
@@ -1380,6 +1387,7 @@ def tour_phase(torch, results) -> None:
 # 103 GB does not fit the card, three super-blocks leave no room for
 # activations and caches).
 WHISPER, QWEN2VL, JAMBA = "whisper-base", "qwen2-vl-7b", "jamba-v0.1-52b"
+NEMOTRON = "nemotron-3-nano-30b-a3b"
 WHISPER_PROMPT = 128
 VLM_PROMPT, VLM_GRID = 1280, 32  # 32 x 32 = 1024 patches, then 256 text
 JAMBA_LAYERS = 16
@@ -1480,11 +1488,11 @@ def layers_vs_plain(torch, run, label: str, tag: str) -> None:
 
 def branches_phase(torch, dev, results, profile: bool, seed: int, card: str,
                    drive, warm, kernels_vs_plain) -> None:
-    """Phase 11: serve the three model branches at full width on the card
-    with exact launch counters, hold their kernels against the plain
-    versions (whisper's prefill logits whole; qwen2-vl's and jamba's
-    attention, MoE and SSD layer by layer), then card == CPU on the three
-    smoke configs."""
+    """Phase 11: serve the model branches at full width on the card with
+    exact launch counters, hold their kernels against the plain versions
+    (whisper's prefill logits whole; qwen2-vl's, jamba's and nemotron's
+    attention, MoE and SSD layer by layer), then card == CPU on the smoke
+    configs of the first three."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1569,6 +1577,31 @@ def branches_phase(torch, dev, results, profile: bool, seed: int, card: str,
     label = f"{JAMBA} ({JAMBA_LAYERS} layers)"
     run = engine_run(label, model, prompt, {})
     layers_vs_plain(torch, run, label, "branches")
+    del model
+    run = None
+    torch.cuda.empty_cache()
+
+    # --- nemotron-3-nano-30b-a3b, bf16, whole, through the engine ---------
+    cfg_n = get_config(NEMOTRON)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = Transformer(cfg_n, device=dev, dtype=torch.bfloat16,
+                        generator=gen)
+    with torch.no_grad():  # the correction bias, drawn as the cell draws it
+        for name, p in model.named_parameters():
+            if name.endswith("e_score_correction_bias"):
+                p.normal_(0.0, 0.01, generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg_n.param_count(), "nemotron parameter count")
+    print(f"[branches] {NEMOTRON}: {cfg_n.n_layers} single-kind blocks "
+          f"{cfg_n.layer_pattern}, {n_params / 1e9:.3f} B bf16 params, "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated; built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    prompt = torch.randint(0, cfg_n.vocab_size, (BATCH, PROMPT),
+                           generator=gen, device=dev)
+    run = engine_run(NEMOTRON, model, prompt, {})
+    layers_vs_plain(torch, run, NEMOTRON, "branches")
     del model
     run = None
     torch.cuda.empty_cache()
@@ -2527,17 +2560,26 @@ def main() -> None:
         else:
             norm_more.append(r)
     results["fused_rmsnorm"]["other_shapes"] = norm_more
+    # nemotron's grouped gated norm: d_inner 4096 in 8 groups of 512, at a
+    # decode step of batch 32 and at the cell's largest prefill (32 x 384)
+    for shape in NORM_NEMOTRON:
+        x = randn(shape, torch.bfloat16)
+        scale = randn(shape[-1:])
+        compare(f"fused_rmsnorm {shape} groups of 512 bf16",
+                ops.fused_rmsnorm(x, scale, group=512),
+                ref.rmsnorm_ref(x, scale, group=512), TOL["bfloat16"])
 
     # SSD scan
-    def ssd_inputs(B, S, H, P, N, dtype, init, model_like=False):
+    def ssd_inputs(B, S, H, P, N, dtype, init, model_like=False, G=1):
         x = randn((B, S, H, P), dtype)
         if model_like:  # mamba2's A = -(1..H), dt = softplus(.) ~ 0.1-1
             A = -torch.arange(1, H + 1, device=dev, dtype=torch.float32)
         else:  # tests/test_kernels.py
             A = -torch.exp(randn((H,)) * 0.5)
         dt = F.softplus(randn((B, S, H)))
-        bc = randn((B, S, 1, 2 * N), dtype)
-        Bm, Cm = bc[..., :N], bc[..., N:]  # strided, as the model passes them
+        bc = randn((B, S, 2 * G * N), dtype)
+        # strided, as the model passes them: B's groups, then C's
+        Bm, Cm = (t.unflatten(-1, (G, N)) for t in bc.chunk(2, dim=-1))
         D = randn((H,))
         s0 = randn((B, H, P, N)) if init else None
         return x, dt, A, Bm, Cm, D, s0
@@ -2609,6 +2651,16 @@ def main() -> None:
         else:
             ssd_more.append(r)
     results["ssd_scan"]["other_shapes"] = ssd_more
+    # nemotron's prefill at the cell's largest prompt: 64 heads of 64 read
+    # B/C in 8 groups of state 128
+    label, B, S, H, P, N, L, G = SSD_NEMOTRON
+    x, dt, A, Bm, Cm, D, _ = ssd_inputs(B, S, H, P, N, torch.bfloat16, False,
+                                        model_like=True, G=G)
+    y, sf = ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=L)
+    yr, sr = ref.ssd_ref(x, dt, A, Bm, Cm, D)
+    name = f"ssd_scan {label} x{(B, S, H, P)} B/C{(B, S, G, N)} chunk {L}"
+    compare(f"{name} bf16 y", y, yr, SSD_Y_TOL["bfloat16"])
+    compare(f"{name} final state", sf, sr, SSD_STATE_TOL)
 
     # grouped matmul: qwen3's expert FF at prefill (G=2 groups of 1024
     # tokens, C=80) and at decode (C=8), gate/up and down, then the sweep
@@ -2625,6 +2677,13 @@ def main() -> None:
         ("jamba prefill down", 16, 320, 14336, 4096, torch.bfloat16),
         ("jamba decode gate/up", 16, 8, 4096, 14336, torch.bfloat16),
         ("jamba decode down", 16, 8, 14336, 4096, torch.bfloat16),
+        # nemotron-3-nano's relu^2 experts: 128 of width 1856, up then
+        # down, C = 12 groups x 64 at the cell's largest prefill (32 x
+        # 384), 8 at decode
+        ("nemotron prefill up", 128, 768, 2688, 1856, torch.bfloat16),
+        ("nemotron prefill down", 128, 768, 1856, 2688, torch.bfloat16),
+        ("nemotron decode up", 128, 8, 2688, 1856, torch.bfloat16),
+        ("nemotron decode down", 128, 8, 1856, 2688, torch.bfloat16),
     ] + [("sweep", e, c, d, f, dt_) for dt_ in (torch.float32, torch.bfloat16)
          for e, c, d, f in ((4, 32, 64, 48), (8, 16, 32, 32),
                             (2, 128, 128, 128), (16, 8, 16, 8))]

@@ -1,7 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> exact published config.
 
 A copy of the reference registry (``src/repro/configs``); its
-``specs.py`` helpers build meta tensors through the port's model.
+``specs.py`` helpers build meta tensors through the port's model. Beside
+the copy, ``_PORT_ONLY`` holds the architectures only the port runs
+(``PatternConfig``s, ``configs.pattern``).
 """
 
 from repro_torch.configs.base import (
@@ -13,6 +15,7 @@ from repro_torch.configs.base import (
     supports_decode,
     supports_long_context,
 )
+from repro_torch.configs.pattern import PatternConfig
 from repro_torch.configs import (
     deepseek_7b,
     granite_34b,
@@ -20,6 +23,7 @@ from repro_torch.configs import (
     jamba_v0_1_52b,
     mamba2_780m,
     moonshot_v1_16b_a3b,
+    nemotron_3_nano_30b_a3b,
     qwen2_72b,
     qwen2_vl_7b,
     qwen3_moe_30b_a3b,
@@ -39,14 +43,22 @@ _MODULES = {
     "whisper-base": whisper_base,
 }
 
+#: architectures only the port runs (``configs.pattern``): ``get_config``
+#: finds them, ``ARCH_IDS`` (the reference's registry) does not list them
+_PORT_ONLY = {
+    "nemotron-3-nano-30b-a3b": nemotron_3_nano_30b_a3b,
+}
+
 ARCH_IDS: tuple[str, ...] = tuple(_MODULES)
 SHAPE_IDS: tuple[str, ...] = tuple(SHAPES)
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
-    if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {list(_MODULES)}")
-    return _MODULES[arch].SMOKE if smoke else _MODULES[arch].FULL
+    mod = _MODULES.get(arch) or _PORT_ONLY.get(arch)
+    if mod is None:
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{list(_MODULES) + list(_PORT_ONLY)}")
+    return mod.SMOKE if smoke else mod.FULL
 
 
 def get_shape(shape: str) -> ShapeConfig:

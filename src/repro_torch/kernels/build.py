@@ -33,8 +33,8 @@ SIGNATURES = {
                            _L, _L, _L, _L, _L, _L,  # q, k strides (b, s, h)
                            _L, _L, _L, _L, _L, _L,  # v, o strides (b, s, h)
                            _I, _I, _F, _P],  # causal, window, scale, stream
-    "gs_rmsnorm": [_I, _P, _P, _P, _L, _I, _F, _P],  # dtype, x, scale, y,
-    #                                                  rows, d, eps, stream
+    "gs_rmsnorm": [_I, _P, _P, _P, _L, _I, _I, _F, _P],  # dtype, x, scale,
+    #                                         y, rows, d, groups, eps, stream
     "gs_ssd_scan": [_I, _P, _P, _P, _P, _P, _P,  # dtype, x, dt, A, B, C, D
                     _P, _P, _P,  # initial state (or null), y, final state
                     _P, _P, _P,  # workspaces: chunk sums, C.B^T, chunk states

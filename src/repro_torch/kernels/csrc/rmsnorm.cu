@@ -1,8 +1,11 @@
 // Fused RMSNorm over the last axis: y = x * rsqrt(mean(x^2) + eps) * scale.
 //
 // Replaces the Pallas TPU kernel `_rmsnorm_kernel` / `fused_rmsnorm` in
-// src/repro/kernels/rmsnorm.py. x (rows, d) float32 or bfloat16, scale (d,)
-// float32; the sum of squares, rsqrt and both multiplies are float32 and the
+// src/repro/kernels/rmsnorm.py. x (rows, d) float32 or bfloat16, scale
+// (groups * d,) float32: row r takes the scale's slice r % groups, so a
+// norm over groups of d channels of a (rows / groups, groups * d) tensor
+// (Mamba-2's grouped gated norm) is one launch; groups is 1 for a plain
+// norm. The sum of squares, rsqrt and both multiplies are float32 and the
 // result is cast to x's type.
 //
 // What bounds it on an H100: a few operations per element against one read
@@ -72,7 +75,8 @@ struct Vec16<__nv_bfloat16> {
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     rmsnorm_vec(const T* __restrict__ x, const float* __restrict__ scale,
-                T* __restrict__ y, long long rows, int d, int tpr, float eps) {
+                T* __restrict__ y, long long rows, int d, int groups, int tpr,
+                float eps) {
   constexpr int kPer = Vec16<T>::kPer;
   const int col0 = threadIdx.x % tpr;
   const long long row =
@@ -110,6 +114,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const float r = rsqrtf(ss / (float)d + eps);
   T* yr = y + row * d;
+  const float* sr = scale + (row % groups) * d;
 #pragma unroll
   for (int k = 0; k < V; ++k) {
     const int c = col0 + k * tpr;
@@ -117,7 +122,7 @@ __global__ void __launch_bounds__(kThreads)
     float s[kPer];
 #pragma unroll
     for (int e = 0; e < kPer; e += 4) {
-      const float4 s4 = *reinterpret_cast<const float4*>(scale + c * kPer + e);
+      const float4 s4 = *reinterpret_cast<const float4*>(sr + c * kPer + e);
       s[e] = s4.x, s[e + 1] = s4.y, s[e + 2] = s4.z, s[e + 3] = s4.w;
     }
 #pragma unroll
@@ -131,10 +136,11 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     rmsnorm_rows(const T* __restrict__ x, const float* __restrict__ scale,
-                 T* __restrict__ y, int d, float eps) {
+                 T* __restrict__ y, int d, int groups, float eps) {
   const long long base = (long long)blockIdx.x * d;
   const T* xr = x + base;
   T* yr = y + base;
+  const float* sr = scale + (long long)(blockIdx.x % groups) * d;
 
   float ss = 0.f;
   for (int c = threadIdx.x; c < d; c += kThreads) {
@@ -153,22 +159,24 @@ __global__ void __launch_bounds__(kThreads)
 
   const float r = rsqrtf(total / (float)d + eps);
   for (int c = threadIdx.x; c < d; c += kThreads)
-    yr[c] = gs::from_f32<T>(gs::to_f32(xr[c]) * r * scale[c]);
+    yr[c] = gs::from_f32<T>(gs::to_f32(xr[c]) * r * sr[c]);
 }
 
 template <typename T, int V>
 cudaError_t launch_vec(const T* x, const float* scale, T* y, long long rows,
-                       int d, int tpr, float eps, cudaStream_t stream) {
+                       int d, int groups, int tpr, float eps,
+                       cudaStream_t stream) {
   const long long per_cta = kThreads / tpr;
   const long long blocks = (rows + per_cta - 1) / per_cta;
   rmsnorm_vec<T, V><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      x, scale, y, rows, d, tpr, eps);
+      x, scale, y, rows, d, groups, tpr, eps);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* xv, const float* scale, void* yv,
-                   long long rows, int d, float eps, cudaStream_t stream) {
+                   long long rows, int d, int groups, float eps,
+                   cudaStream_t stream) {
   const T* x = static_cast<const T*>(xv);
   T* y = static_cast<T*>(yv);
   constexpr int kPer = Vec16<T>::kPer;
@@ -178,37 +186,47 @@ cudaError_t launch(const void* xv, const float* scale, void* yv,
                    gs::aligned16(scale);
   if (!vec) {
     rmsnorm_rows<T><<<(unsigned)rows, kThreads, 0, stream>>>(x, scale, y, d,
-                                                              eps);
+                                                              groups, eps);
     return cudaGetLastError();
   }
   int tpr = 32;
   while (nv > kMaxVec * tpr) tpr *= 2;
   switch ((nv + tpr - 1) / tpr) {
-    case 1: return launch_vec<T, 1>(x, scale, y, rows, d, tpr, eps, stream);
-    case 2: return launch_vec<T, 2>(x, scale, y, rows, d, tpr, eps, stream);
-    case 3: return launch_vec<T, 3>(x, scale, y, rows, d, tpr, eps, stream);
-    case 4: return launch_vec<T, 4>(x, scale, y, rows, d, tpr, eps, stream);
-    case 5: return launch_vec<T, 5>(x, scale, y, rows, d, tpr, eps, stream);
-    case 6: return launch_vec<T, 6>(x, scale, y, rows, d, tpr, eps, stream);
-    case 7: return launch_vec<T, 7>(x, scale, y, rows, d, tpr, eps, stream);
-    default: return launch_vec<T, 8>(x, scale, y, rows, d, tpr, eps, stream);
+    case 1: return launch_vec<T, 1>(x, scale, y, rows, d, groups, tpr, eps,
+                                    stream);
+    case 2: return launch_vec<T, 2>(x, scale, y, rows, d, groups, tpr, eps,
+                                    stream);
+    case 3: return launch_vec<T, 3>(x, scale, y, rows, d, groups, tpr, eps,
+                                    stream);
+    case 4: return launch_vec<T, 4>(x, scale, y, rows, d, groups, tpr, eps,
+                                    stream);
+    case 5: return launch_vec<T, 5>(x, scale, y, rows, d, groups, tpr, eps,
+                                    stream);
+    case 6: return launch_vec<T, 6>(x, scale, y, rows, d, groups, tpr, eps,
+                                    stream);
+    case 7: return launch_vec<T, 7>(x, scale, y, rows, d, groups, tpr, eps,
+                                    stream);
+    default: return launch_vec<T, 8>(x, scale, y, rows, d, groups, tpr, eps,
+                                     stream);
   }
 }
 
 }  // namespace
 
 extern "C" int gs_rmsnorm(int dtype, const void* x, const void* scale, void* y,
-                          long long rows, int d, float eps, void* stream) {
-  if (d < 1 || rows < 0 || rows > 0x7fffffffLL)
+                          long long rows, int d, int groups, float eps,
+                          void* stream) {
+  if (d < 1 || groups < 1 || rows < 0 || rows > 0x7fffffffLL ||
+      rows % groups)
     return (int)cudaErrorInvalidValue;
   if (rows == 0) return (int)cudaSuccess;
   const float* s = static_cast<const float*>(scale);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case gs::kFloat32:
-      return (int)launch<float>(x, s, y, rows, d, eps, st);
+      return (int)launch<float>(x, s, y, rows, d, groups, eps, st);
     case gs::kBFloat16:
-      return (int)launch<__nv_bfloat16>(x, s, y, rows, d, eps, st);
+      return (int)launch<__nv_bfloat16>(x, s, y, rows, d, groups, eps, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -90,15 +90,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
-                  eps: float = 1e-5) -> torch.Tensor:
-    """x (..., d) RMS-normalized over the last axis and scaled."""
+                  eps: float = 1e-5, group: int | None = None
+                  ) -> torch.Tensor:
+    """x (..., d) RMS-normalized over the last axis and scaled; with
+    ``group``, over each run of ``group`` channels of it (Mamba-2's
+    grouped gated norm), scale still (d,)."""
     if x.device.type == "cpu" and scale.device.type == "cpu":
-        return ref.rmsnorm_ref(x, scale, eps)
+        return ref.rmsnorm_ref(x, scale, eps, group=group)
     _check_cuda("fused_rmsnorm", x, scale)
     d = x.shape[-1]
     if tuple(scale.shape) != (d,) or scale.dtype != torch.float32:
         raise ValueError(f"fused_rmsnorm: scale must be float32 ({d},), got "
                          f"{scale.dtype} {tuple(scale.shape)}")
+    group = group or d
+    if d % group:
+        raise ValueError(f"fused_rmsnorm: group {group} does not divide {d}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused_rmsnorm: float32 or bfloat16 x, got {x.dtype}")
     if not (x.is_contiguous() and scale.is_contiguous()):
@@ -107,7 +113,7 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
     with torch.cuda.device(x.device):
         err = build.library().gs_rmsnorm(
             _DTYPES[x.dtype], x.data_ptr(), scale.data_ptr(), y.data_ptr(),
-            x.numel() // d, d, float(eps),
+            x.numel() // group, group, d // group, float(eps),
             torch.cuda.current_stream().cuda_stream)
     _raise_on("fused_rmsnorm", err)
     LAUNCHES["fused_rmsnorm"] += 1

@@ -78,8 +78,14 @@ def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
-                eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm over the last axis, float32 internals, cast back to x.dtype."""
+                eps: float = 1e-5, *, group: int | None = None
+                ) -> torch.Tensor:
+    """RMSNorm over the last axis, float32 internals, cast back to x.dtype;
+    with ``group``, over each run of ``group`` channels of it."""
     x32 = x.float()
+    d = x.shape[-1]
+    if group is not None:
+        x32 = x32.unflatten(-1, (d // group, group))
+        scale = scale.view(d // group, group)
     var = x32.square().mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
+    return (x32 * torch.rsqrt(var + eps) * scale).reshape(x.shape).to(x.dtype)

@@ -49,6 +49,10 @@ cell it reports:
   reduce-scattered. Remat recompute re-issues what it recomputes.
 * SKIPs with the reference's ``cell_supported`` reasons, and ``count_s``
   (the time of the FLOP count, the counterpart of compile time).
+* A layer-pattern config (``configs.pattern``, port-only: Nemotron-H) is
+  refused with a ``ValueError``: the accounting builds one super-block of
+  ``layer_kinds`` and scales it by ``n_layers / block_period``, and its
+  closed forms know no B/C groups, relu^2 experts or shared expert.
 
 N/A, because there is no HLO: ``normalize_cost_analysis`` (it parses XLA
 output), ``measure_cell``'s two-probe extrapolation (XLA counts a
@@ -88,6 +92,7 @@ from repro_torch.configs import (
     meta_model,
 )
 from repro_torch.configs.base import ModelConfig, ShapeConfig, ShapeKind
+from repro_torch.configs.pattern import option
 from repro_torch.launch.costs import COLLECTIVES, DeviceCostMode, nbytes
 from repro_torch.launch.mesh import (
     data_axes,
@@ -127,6 +132,14 @@ from repro_torch.train.train_step import (
 # ---------------------------------------------------------------------------
 # Cells
 # ---------------------------------------------------------------------------
+
+
+def refuse_pattern(cfg: ModelConfig) -> None:
+    """Raise for a layer-pattern config, which the accounting would count
+    wrong (the module docstring)."""
+    if option(cfg, "layer_pattern"):
+        raise ValueError(f"{cfg.name}: the dry run does not account a "
+                         "layer-pattern config")
 
 
 def cell_kind(shape: ShapeConfig) -> str:
@@ -268,6 +281,7 @@ def flop_terms(cfg: ModelConfig, shape: ShapeConfig, *,
     d, hd, H = cfg.d_model, cfg.head_dim, cfg.n_heads
     kv = cfg.n_kv_heads * hd
     mult = 3 if kind == "train" else 1
+    refuse_pattern(cfg)
     kinds = layer_kinds(cfg)
     layers = [kinds[i % len(kinds)] for i in range(cfg.n_layers)]
 
@@ -554,6 +568,7 @@ def device_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     super-block keeps alive; the peak is the larger phase's. ``tests/test_torch_roofline.py`` holds
     this to the whole step, and ``chip_smoke.py`` the whole step on the
     card to it."""
+    refuse_pattern(cfg)
     kind = cell_kind(shape)
     lcfg = tp_local_config(cfg, axis_sizes(mesh)["model"])
     local = dataclasses.replace(shape, global_batch=_local_batch(shape, mesh))
@@ -820,6 +835,7 @@ def collective_cost(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     and ``bytes`` by kind (``bytes`` with its ``total``) and ``groups``:
     one {kind, size, span (the group's lowest and highest rank), bytes}
     per kind and process group."""
+    refuse_pattern(cfg)
     kind = cell_kind(shape)
     train = kind == "train"
     tp = axis_sizes(mesh)["model"]
@@ -906,6 +922,7 @@ def lower_cell(arch: str, shape_id: str, mesh, *, remat: str = "minimal",
     seconds) of the same (arch, shape) counted earlier, reused (the count
     does not depend on the mesh)."""
     cfg = get_config(arch)
+    refuse_pattern(cfg)
     shape = get_shape(shape_id)
     kind = cell_kind(shape)
     res = DryRunResult(arch=arch, shape=shape_id, mesh=mesh_name(mesh),

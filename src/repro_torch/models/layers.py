@@ -92,6 +92,24 @@ class MLP(nn.Module):
         return mlp(self.w_gate, self.w_up, self.w_down, x)
 
 
+# --- relu^2 MLP (Nemotron-H's experts and shared expert) ---------------------------
+
+
+class Relu2MLP(nn.Module):
+    """``down(relu(x @ up) ** 2)``."""
+
+    def __init__(self, d: int, d_ff: int, *, device,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.w_up = dense_init(d, d_ff, **kw)
+        self.w_down = dense_init(d_ff, d, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(x @ self.w_up).square() @ self.w_down
+
+
 # --- fc-GELU-fc MLP (granite, whisper) ----------------------------------------------
 
 

@@ -8,8 +8,14 @@ stays plain torch ops, as the reference computes it in jnp outside any
 kernel. ``ssd_chunked``, the reference's pure-jnp chunked scan, is the
 training path's scan (the kernel has no backward).
 
-Quirks kept from the reference: prefill returns the conv tails in x's
-dtype, while ``init_ssm_state`` makes them bfloat16; one B/C group (G=1).
+B and C come in ``ssm_groups`` groups (``configs.pattern``; 1, as in the
+reference, for every copied config): head h reads group h // (H / G), and
+the gated RMSNorm then runs over each group's d_inner / G channels, as
+Nemotron-H's ``MambaRMSNormGated(group_size=...)`` does. d_inner is
+``cfg.d_inner`` (heads x head dim where the config sets ``ssm_n_heads``).
+
+Quirk kept from the reference: prefill returns the conv tails in x's
+dtype, while ``init_ssm_state`` makes them bfloat16.
 
 Shapes: x (B,S,H,P), dt (B,S,H), A (H,), B/C (B,S,G,N), D (H,). State:
 (B,H,P,N).
@@ -25,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.pattern import option
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import KERNELS, KernelSet
 from repro_torch.models.layers import dense_init
@@ -49,7 +56,7 @@ class Mamba2(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-        G = 1
+        G = option(cfg, "ssm_groups")
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.z_proj = dense_init(d, di, **kw)
         self.x_proj = dense_init(d, di, **kw)
@@ -143,6 +150,14 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.to(x.dtype), state
 
 
+def _gated_norm(kernels: KernelSet, y: torch.Tensor, z: torch.Tensor,
+                p: Mamba2, cfg: ModelConfig) -> torch.Tensor:
+    """RMSNorm of y * silu(z) over each B/C group's channels (all of
+    d_inner for one group), through the kernel set's RMSNorm."""
+    return kernels.rmsnorm(y * F.silu(z), p.norm_scale, eps=cfg.norm_eps,
+                           group=cfg.d_inner // option(cfg, "ssm_groups"))
+
+
 def _conv_with_tail(seq: torch.Tensor, tail: torch.Tensor | None,
                     w: torch.Tensor, b: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -167,7 +182,7 @@ def mamba_forward(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     """Full-sequence Mamba-2 mixer. x (B,S,d_model) -> (y, final SSMState)."""
     Bsz, S, _ = x.shape
     di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    G = 1
+    G = option(cfg, "ssm_groups")
     z = x @ p.z_proj
     xs_raw = x @ p.x_proj
     bc_raw = x @ p.bc_proj
@@ -202,7 +217,7 @@ def mamba_forward(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
 
     y = y[:, :S].reshape(Bsz, S, di)
     # gated RMSNorm (mamba2): normalize y * silu(z)
-    y = kernels.rmsnorm(y * F.silu(z), p.norm_scale, eps=cfg.norm_eps)
+    y = _gated_norm(kernels, y, z, p, cfg)
     out = y @ p.out_proj
     return out, SSMState(conv_x=new_tail_x.to(x.dtype),
                          conv_bc=new_tail_bc.to(x.dtype), ssm=final)
@@ -211,7 +226,7 @@ def mamba_forward(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
 def init_ssm_state(cfg: ModelConfig, batch: int, *,
                    device: str | torch.device = "cuda") -> SSMState:
     dev = resolve_device(device)
-    G = 1
+    G = option(cfg, "ssm_groups")
     tail = lambda ch: torch.zeros((batch, cfg.ssm_conv - 1, ch),
                                   dtype=torch.bfloat16, device=dev)
     return SSMState(
@@ -247,7 +262,7 @@ def mamba_decode_step(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     RMSNorm."""
     Bsz = x.shape[0]
     di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    G = 1
+    G = option(cfg, "ssm_groups")
     xt = x[:, 0]  # (B, d)
     z = xt @ p.z_proj
     xs_raw = xt @ p.x_proj
@@ -273,8 +288,7 @@ def mamba_decode_step(p: Mamba2, cfg: ModelConfig, x: torch.Tensor,
     A = -torch.exp(p.A_log)
     y, new_ssm = ssd_decode_step(xs, dt_act, A, Bmat, Cmat, p.D, state.ssm)
     y = y.reshape(Bsz, 1, di)
-    y = kernels.rmsnorm(y * F.silu(z)[:, None, :], p.norm_scale,
-                        eps=cfg.norm_eps)
+    y = _gated_norm(kernels, y, z[:, None, :], p, cfg)
     out = y @ p.out_proj
     return out, SSMState(conv_x=new_tail_x.to(state.conv_x.dtype),
                          conv_bc=new_tail_bc.to(state.conv_bc.dtype),

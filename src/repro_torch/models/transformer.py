@@ -1,7 +1,9 @@
 """The model zoo's decoder stack (port of
 ``src/repro/models/transformer.py``): the DENSE, SSM, MOE and HYBRID
-families, whisper's encoder-decoder (AUDIO) and qwen2-vl's M-RoPE backbone
-(VLM).
+families, whisper's encoder-decoder (AUDIO), qwen2-vl's M-RoPE backbone
+(VLM), and the layer-pattern hybrids only the port holds
+(``configs.pattern``: Nemotron-H's single-kind Mamba-2, MoE and attention
+blocks).
 
 ``Transformer`` is an ``nn.Module`` whose parameters keep the reference's
 leaf names and (d_in, d_out) orientation; the reference stacks each
@@ -10,7 +12,9 @@ sub-layer position over super-blocks for ``lax.scan``, the port keeps one
 unstacks (whisper's ``encoder.blocks`` likewise). Each layer follows its
 ``SubLayerKind``: an attention or Mamba-2 mixer, whisper's cross attention
 over the encoder memory, then a dense SwiGLU (fc-GELU-fc when
-``cfg.mlp_gelu``), an MoE or no FF. Prefill attention, the encoder's and
+``cfg.mlp_gelu``), an MoE or no FF; a pattern config's layer is one block
+of one kind, a mixer without an FF or an MoE FF without a mixer, behind
+one norm. Prefill attention, the encoder's and
 the cross attention, the SSD scan, the expert FF and every RMSNorm go
 through the CUDA kernels (their plain versions on CPU tensors); the expert
 FF does in decode too, while a decode step's single query (self and cross
@@ -26,8 +30,9 @@ blocked ``sdpa``, ``ssd_chunked``, the einsum expert FF and the plain
 RMSNorm. The kernels have no backward (nor have the reference's), and
 their outputs carry no gradient, so no training call reaches them. Remat
 applies per super-block of ``block_period(cfg)`` layers, as the
-reference's ``lax.scan`` step; its ``act_spec`` and ``scan_unroll`` are
-GSPMD and scan knobs with no eager counterpart.
+reference's ``lax.scan`` step (per layer for a pattern, which has no
+period); its ``act_spec`` and ``scan_unroll`` are GSPMD and scan knobs
+with no eager counterpart.
 
 The stub frontends arrive as inputs, as in the reference: qwen2-vl's
 ``patch_embeds`` (B, P, d) replace the first P token embeddings, and
@@ -54,6 +59,7 @@ from torch import nn
 
 from repro_torch import obs
 from repro_torch.configs.base import Family, ModelConfig
+from repro_torch.configs.pattern import KINDS, option
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
 from repro_torch.kernels.ops import KERNELS, KernelSet
@@ -84,19 +90,31 @@ from repro_torch.models.remat import wrap_remat
 class SubLayerKind:
     """Static structure of one sub-layer position within the super-block."""
 
-    mixer: str  # "attn" | "mamba"
+    mixer: Optional[str]  # "attn" | "mamba" | None (a pattern's MoE block)
     ff: Optional[str]  # "dense" | "moe" | None (SSM family has no FF)
     cross_attn: bool = False  # whisper decoder
 
+    @property
+    def norm2(self) -> bool:
+        """A second norm before the FF: a layer with a mixer and an FF."""
+        return self.mixer is not None and self.ff is not None
+
 
 def block_period(cfg: ModelConfig) -> int:
+    """Layers of one super-block: 1 for a layer pattern (no period)."""
+    if option(cfg, "layer_pattern"):
+        return 1
     a = cfg.attn_period if cfg.attn_period > 0 else 1
     m = cfg.moe_period if cfg.n_experts else 1
     return math.lcm(a, m)
 
 
 def layer_kinds(cfg: ModelConfig) -> list[SubLayerKind]:
-    """The per-position kinds of one super-block (constant across supers)."""
+    """The per-position kinds of one super-block (constant across supers);
+    for a layer pattern, every layer's kind."""
+    pattern = option(cfg, "layer_pattern")
+    if pattern:
+        return [SubLayerKind(*KINDS[c]) for c in pattern]
     period = block_period(cfg)
     if cfg.n_layers % period != 0:
         raise ValueError(f"{cfg.name}: n_layers={cfg.n_layers} not divisible "
@@ -118,24 +136,26 @@ def layer_kinds(cfg: ModelConfig) -> list[SubLayerKind]:
 def kernel_launches(cfg: ModelConfig, decode_steps: int = 0) -> dict:
     """The kernel launches of one prefill of a prompt longer than one token
     and ``decode_steps`` decode steps: RMSNorm for every norm (each layer's
-    norm1, the norm2 of a layer with an FF, a cross layer's third, a Mamba
-    layer's gated norm, the final; whisper's encoder's two a layer and its
-    final, at prefill), flash for every prefill attention (the encoder's
-    and the cross attention too), the SSD scan for each Mamba layer's
-    prefill, three grouped matmuls for each MoE layer in every pass."""
+    norm1, the norm2 of a layer with a mixer and an FF, a cross layer's
+    third, a Mamba layer's gated norm, the final; whisper's encoder's two a
+    layer and its final, at prefill), flash for every prefill attention
+    (the encoder's and the cross attention too), the SSD scan for each
+    Mamba layer's prefill, three grouped matmuls (two for relu^2 experts)
+    for each MoE layer in every pass."""
     kinds = layer_kinds(cfg)
     kinds = [kinds[i % len(kinds)] for i in range(cfg.n_layers)]
     n_attn = sum(k.mixer == "attn" for k in kinds)
-    n_mamba = len(kinds) - n_attn
-    n_ff = sum(k.ff is not None for k in kinds)
+    n_mamba = sum(k.mixer == "mamba" for k in kinds)
+    n_norm2 = sum(k.norm2 for k in kinds)
     n_moe = sum(k.ff == "moe" for k in kinds)
     n_cross = sum(k.cross_attn for k in kinds)
     n_enc = cfg.n_encoder_layers if cfg.is_encoder_decoder else 0
     passes = 1 + decode_steps
+    gmm = 2 if option(cfg, "moe_act") == "relu2" else 3
     return {"flash_attention": n_attn + n_cross + n_enc,
             "ssd_scan": n_mamba,
-            "grouped_matmul": 3 * n_moe * passes,
-            "fused_rmsnorm": (len(kinds) + n_ff + n_cross + n_mamba + 1)
+            "grouped_matmul": gmm * n_moe * passes,
+            "fused_rmsnorm": (len(kinds) + n_norm2 + n_cross + n_mamba + 1)
             * passes + (2 * n_enc + 1 if n_enc else 0)}
 
 
@@ -170,11 +190,12 @@ def train_paths(cfg: ModelConfig) -> KernelSet:
 @dataclasses.dataclass
 class DecodeState:
     """One cache per layer (a KVCache for attention, an SSMState for
-    Mamba-2), the count of tokens seen so far and each layer's
-    cross-attention K/V of the encoder memory (filled once by ``prefill``;
-    None for each layer of a decoder-only model)."""
+    Mamba-2, None for a layer without a mixer), the count of tokens seen
+    so far and each layer's cross-attention K/V of the encoder memory
+    (filled once by ``prefill``; None for each layer of a decoder-only
+    model)."""
 
-    caches: list[Union[KVCache, SSMState]]
+    caches: list[Optional[Union[KVCache, SSMState]]]
     step: int
     cross_kv: list[Optional[tuple[torch.Tensor, torch.Tensor]]]
 
@@ -187,7 +208,8 @@ class DecoderLayer(nn.Module):
     """One pre-norm layer of the given kind: ``norm1`` + an ``attn`` or
     ``mamba`` mixer, then (whisper) ``norm_x`` + ``cross`` attention over
     the encoder memory, then ``norm2`` + an ``ff`` (SwiGLU, or fc-GELU-fc
-    when ``cfg.mlp_gelu``) or ``moe`` FF, or no FF (the SSM family)."""
+    when ``cfg.mlp_gelu``) or ``moe`` FF, or no FF (the SSM family). A
+    layer without a mixer (a pattern's MoE block) is ``norm1`` + ``moe``."""
 
     def __init__(self, cfg: ModelConfig, kind: SubLayerKind, *, device,
                  dtype: torch.dtype, generator: torch.Generator | None):
@@ -197,12 +219,12 @@ class DecoderLayer(nn.Module):
         self.norm1 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         if kind.mixer == "attn":
             self.attn = attn_mod.Attention(cfg, **kw)
-        else:
+        elif kind.mixer == "mamba":
             self.mamba = Mamba2(cfg, **kw)
         if kind.cross_attn:
             self.norm_x = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
             self.cross = attn_mod.Attention(cfg, **kw)
-        if kind.ff is not None:
+        if kind.norm2:
             self.norm2 = RMSNorm(cfg.d_model, cfg.norm_eps, device=device)
         if kind.ff == "dense":
             self.ff = _ff(cfg, **kw)
@@ -223,11 +245,12 @@ class DecoderLayer(nn.Module):
     def feed_forward(self, x: torch.Tensor, kernels: KernelSet = KERNELS
                      ) -> tuple[torch.Tensor, torch.Tensor | float]:
         """(x + the layer's FF of norm2(x), the MoE aux loss); x itself and
-        0 when it has none."""
+        0 when it has none. A layer without a mixer normalises by norm1."""
+        norm = self.norm2 if self.kind.norm2 else self.norm1
         if self.kind.ff == "dense":
-            return x + self.ff(self.norm2(x, kernels)), 0.0
+            return x + self.ff(norm(x, kernels)), 0.0
         if self.kind.ff == "moe":
-            y, aux = self.moe(self.norm2(x, kernels), kernels)
+            y, aux = self.moe(norm(x, kernels), kernels)
             return x + y, aux
         return x, 0.0
 
@@ -235,14 +258,16 @@ class DecoderLayer(nn.Module):
                 kernels: KernelSet = KERNELS
                 ) -> tuple[torch.Tensor, torch.Tensor | float]:
         """One pre-norm layer over the whole sequence: (x, MoE aux)."""
-        h = self.norm1(x, kernels)
-        if self.kind.mixer == "attn":
-            y, _, _ = attn_mod.attention(self.attn, self.cfg, h, positions,
-                                         kernels)
-        else:
-            y, _ = mamba_forward(self.mamba, self.cfg, h, kernels=kernels)
-        return self.feed_forward(self.cross_attend(x + y, mkv, kernels),
-                                 kernels)
+        if self.kind.mixer is not None:
+            h = self.norm1(x, kernels)
+            if self.kind.mixer == "attn":
+                y, _, _ = attn_mod.attention(self.attn, self.cfg, h,
+                                             positions, kernels)
+            else:
+                y, _ = mamba_forward(self.mamba, self.cfg, h,
+                                     kernels=kernels)
+            x = x + y
+        return self.feed_forward(self.cross_attend(x, mkv, kernels), kernels)
 
 
 def _feed_forward(layer: DecoderLayer, x: torch.Tensor,
@@ -487,19 +512,23 @@ class Transformer(nn.Module):
         cross_kv = self._memory_kv(encoder_frames, kernels)
         caches = []
         for layer, mkv in zip(self.layers, cross_kv):
-            with obs.span(layer.kind.mixer):
-                h = layer.norm1(x, kernels)
-                if layer.kind.mixer == "attn":
-                    y, k, v = attn_mod.attention(layer.attn, cfg, h,
-                                                 positions, kernels)
-                    caches.append(KVCache(
-                        k=_kv_to_ring(k.to(cache_dtype), kv_buf),
-                        v=_kv_to_ring(v.to(cache_dtype), kv_buf), length=S))
-                else:
-                    y, st = mamba_forward(layer.mamba, cfg, h,
-                                          kernels=kernels)
-                    caches.append(st)
-            x = _feed_forward(layer, layer.cross_attend(x + y, mkv, kernels),
+            cache = None
+            if layer.kind.mixer is not None:
+                with obs.span(layer.kind.mixer):
+                    h = layer.norm1(x, kernels)
+                    if layer.kind.mixer == "attn":
+                        y, k, v = attn_mod.attention(layer.attn, cfg, h,
+                                                     positions, kernels)
+                        cache = KVCache(
+                            k=_kv_to_ring(k.to(cache_dtype), kv_buf),
+                            v=_kv_to_ring(v.to(cache_dtype), kv_buf),
+                            length=S)
+                    else:
+                        y, cache = mamba_forward(layer.mamba, cfg, h,
+                                                 kernels=kernels)
+                x = x + y
+            caches.append(cache)
+            x = _feed_forward(layer, layer.cross_attend(x, mkv, kernels),
                               kernels)
         with obs.span("head"):
             logits = self._logits(x, kernels)
@@ -525,16 +554,18 @@ class Transformer(nn.Module):
         cross_kv = state.cross_kv
         caches = []
         for layer, cache, mkv in zip(self.layers, state.caches, cross_kv):
-            with obs.span(layer.kind.mixer):
-                h = layer.norm1(x, kernels)
-                if layer.kind.mixer == "attn":
-                    y, cache = attn_mod.decode_attention(
-                        layer.attn, self.cfg, h, cache, positions)
-                else:
-                    y, cache = mamba_decode_step(layer.mamba, self.cfg, h,
-                                                 cache, kernels)
+            if layer.kind.mixer is not None:
+                with obs.span(layer.kind.mixer):
+                    h = layer.norm1(x, kernels)
+                    if layer.kind.mixer == "attn":
+                        y, cache = attn_mod.decode_attention(
+                            layer.attn, self.cfg, h, cache, positions)
+                    else:
+                        y, cache = mamba_decode_step(layer.mamba, self.cfg,
+                                                     h, cache, kernels)
+                x = x + y
             caches.append(cache)
-            x = _feed_forward(layer, layer.cross_attend(x + y, mkv, kernels),
+            x = _feed_forward(layer, layer.cross_attend(x, mkv, kernels),
                               kernels)
         with obs.span("head"):
             logits = self._logits(x, kernels)
@@ -549,9 +580,10 @@ class Transformer(nn.Module):
         """Empty decode caches for ``batch`` sequences of up to ``max_seq``
         tokens, port of the reference's ``init_decode_state``: a KV cache
         in ``cache_dtype`` (default ``cfg.cache_dtype``) for each attention
-        layer, a zero SSM state for each Mamba layer, and, for an
-        encoder-decoder, each layer's cross K/V of the encoded
-        ``encoder_frames``. Built on the model's device, ``meta`` too."""
+        layer, a zero SSM state for each Mamba layer, None for a layer
+        without a mixer, and, for an encoder-decoder, each layer's cross
+        K/V of the encoded ``encoder_frames``. Built on the model's device,
+        ``meta`` too."""
         cfg = self.cfg
         dev = self.embed.device
         dtype = cache_dtype or getattr(torch, cfg.cache_dtype)
@@ -559,6 +591,7 @@ class Transformer(nn.Module):
                                          device=dev)
                   if layer.kind.mixer == "attn"
                   else init_ssm_state(cfg, batch, device=dev)
+                  if layer.kind.mixer == "mamba" else None
                   for layer in self.layers]
         return DecodeState(caches=caches, step=0,
                            cross_kv=self._memory_kv(encoder_frames, kernels))

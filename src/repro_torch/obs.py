@@ -16,17 +16,23 @@ The spans, and where they are opened:
 - per layer in ``Transformer.prefill`` and ``decode_step``: ``attn`` or
   ``mamba`` (norm1, the mixer and its cache write), ``ff`` or ``moe``
   (norm2 and the dense or MoE FF), then ``head`` (final norm, LM head);
+  a layer of a pattern config (``configs.pattern``) is one block and
+  opens exactly one of ``mamba``, ``attn`` or ``moe`` (its norm inside);
+- inside ``moe`` (``models.moe.moe_forward``, wherever it runs):
+  ``moe.route`` (router, top-k and the dispatch positions),
+  ``moe.experts`` (the dispatch, the grouped matmuls and the combine),
+  and ``moe.shared`` (the shared expert, where the config has one);
 - ``train.forward`` (the loss), ``train.backward`` (the gradients, remat's
   recompute included): ``train_step.grads_over_microbatches``;
   ``train.optimizer`` (the update, clipping included): the step itself.
 
 On CUDA, ``serve_step`` replays a captured graph of the decode step
 (``serve.engine``). ``decode`` still opens on every step, but the
-per-layer spans inside it (``attn``, ``mamba``, ``ff``, ``moe``, ``head``)
-open only while the step is captured: a replayed step issues one
-``cudaGraphLaunch`` and its kernels find no per-layer span, so per-layer
-host time no longer splits a replayed step, and the device operations a
-``decode`` span counts are those of that one launch.
+per-layer spans inside it (``attn``, ``mamba``, ``ff``, ``moe`` and its
+``moe.*``, ``head``) open only while the step is captured: a replayed
+step issues one ``cudaGraphLaunch`` and its kernels find no per-layer
+span, so per-layer host time no longer splits a replayed step, and the
+device operations a ``decode`` span counts are those of that one launch.
 """
 
 from __future__ import annotations

@@ -44,12 +44,12 @@ STEPS: dict[str, int] = {"captures": 0, "replays": 0, "eager_steps": 0}
 
 
 def _leaves(state: DecodeState) -> list[torch.Tensor]:
-    """Every tensor of ``state`` in a fixed order: each layer's cache, then
-    each layer's cross K/V."""
+    """Every tensor of ``state`` in a fixed order: each layer's cache (none
+    for a layer without one), then each layer's cross K/V."""
     out = []
     for c in state.caches:
         out += [c.k, c.v] if isinstance(c, KVCache) else \
-            [c.conv_x, c.conv_bc, c.ssm]
+            [c.conv_x, c.conv_bc, c.ssm] if isinstance(c, SSMState) else []
     for kv in state.cross_kv:
         out += [] if kv is None else list(kv)
     return out
@@ -63,6 +63,7 @@ def _over(state: DecodeState, leaves: list[torch.Tensor],
     caches = [KVCache(k=next(it), v=next(it), length=c.length + advance)
               if isinstance(c, KVCache)
               else SSMState(conv_x=next(it), conv_bc=next(it), ssm=next(it))
+              if isinstance(c, SSMState) else None
               for c in state.caches]
     cross = [None if kv is None else (next(it), next(it))
              for kv in state.cross_kv]
@@ -71,9 +72,9 @@ def _over(state: DecodeState, leaves: list[torch.Tensor],
 
 
 def _layout(state: DecodeState, tokens: torch.Tensor) -> tuple:
-    """What a captured step is keyed by: the batch, each cache's kind and
-    which layers have cross K/V, and every tensor's shape, dtype and
-    device."""
+    """What a captured step is keyed by: the batch, each cache's kind (or
+    none) and which layers have cross K/V, and every tensor's shape, dtype
+    and device."""
     return (tuple(tokens.shape), tuple(type(c) for c in state.caches),
             tuple(kv is None for kv in state.cross_kv),
             tuple((t.shape, t.dtype, t.device) for t in _leaves(state)))

@@ -332,6 +332,28 @@ class TestCudaNormWidths:
         _norm_check(_rand(rng, (rows, d), name, cuda), rng, name, cuda)
 
     @pytest.mark.parametrize("name", list(TORCH_DTYPES))
+    @pytest.mark.parametrize("shape,group", [
+        ((32, 1, 4096), 512), ((3, 384, 4096), 512), ((5, 96), 24),
+        ((4, 90), 30), ((6, 2560), 2560)])
+    def test_groups(self, cuda, name, shape, group):
+        """Mamba-2's grouped gated norm (nemotron's 8 groups of 512 at a
+        decode step and a prefill): each run of ``group`` channels
+        normalised on its own and scaled by its slice of the (d,) scale,
+        in one launch, on the register path and on the general one (30
+        channels, off the 16-byte units)."""
+        rng = np.random.default_rng(shape[-1] + group)
+        x = _rand(rng, shape, name, cuda)
+        s = torch.from_numpy(rng.standard_normal(shape[-1]).astype(
+            np.float32)).to(cuda)
+        before = t_ops.LAUNCHES["fused_rmsnorm"]
+        out = t_ops.fused_rmsnorm(x, s, group=group)
+        torch.cuda.synchronize()
+        assert t_ops.LAUNCHES["fused_rmsnorm"] == before + 1
+        want = t_ref.rmsnorm_ref(x, s, group=group)
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **_tol(name))
+
+    @pytest.mark.parametrize("name", list(TORCH_DTYPES))
     @pytest.mark.parametrize("d", [96, 1536, 2560])
     def test_unaligned_base(self, cuda, name, d):
         rng = np.random.default_rng(d)
@@ -387,6 +409,122 @@ def test_smoke_model_runs_the_kernels_and_matches_plain(cuda):
     want, _ = model.prefill(toks, max_seq=64, kernels=t_ops.PLAIN)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_nemotron_smoke_runs_the_kernels_and_matches_plain(cuda):
+    """nemotron's smoke stack (MEM*EME) on the card: a prefill and a
+    decode step through the kernels (one flash, three SSD scans, every
+    norm one launch, the grouped gated norm too, two grouped matmuls a
+    MoE block) match the same module through the plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Transformer, kernel_launches
+
+    cfg = get_config("nemotron-3-nano-30b-a3b", smoke=True)
+    model = Transformer(cfg, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("e_score_correction_bias"):
+                p.normal_(0.0, 0.01)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    before = dict(t_ops.LAUNCHES)
+    got, state = model.prefill(toks, max_seq=48)
+    step, _ = model.decode_step(state, got[:, -1:].argmax(-1))
+    torch.cuda.synchronize()
+    assert {k: t_ops.LAUNCHES[k] - before[k] for k in before} == \
+        kernel_launches(cfg, decode_steps=1)
+    want, state = model.prefill(toks, max_seq=48, kernels=t_ops.PLAIN)
+    want_step, _ = model.decode_step(state, want[:, -1:].argmax(-1),
+                                     kernels=t_ops.PLAIN)
+    for a, b in ((got, want), (step, want_step)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_nemotron_float32_matches_the_reference_at_published_widths(
+        cuda, monkeypatch):
+    """nemotron at every published width in float32 (TF32 off), on the
+    first 8 blocks of its pattern (MEMEM*EM): a prefill of 8 x 256 and 16
+    decode steps through the kernels against ``bench/families/
+    nemotron_h.py``'s plain reference, teacher-forced on the served tokens,
+    the reference handed the port's expert ids (its own gates from them).
+    Routing on its own, a few of the 6,528 (token, block) top-6 sets part
+    at near-ties (the port's smallest margin ~5e-7) and capacity and the
+    caches carry each flip on (logits up to ~1 apart); with one routing the
+    two sides differ only in summation order: 3.9e-5 on logits up to 5.7
+    on an H100, held here at 5e-5 of the largest logit."""
+    import copy
+    import json
+    from pathlib import Path
+
+    from bench.harness import port
+    from bench.harness.cell import load_family
+    from repro_torch.models import moe
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "bench" / "configs" /
+                      "nemotron-3-nano-30b-a3b.json").read_text())
+    cfg = copy.deepcopy(cfg)
+    m = cfg["model"]
+    for k, v in (("n_layers", 8), ("layer_pattern", m["layer_pattern"][:8])):
+        cfg["reduced"][k] = [m[k], v]
+        m[k] = v
+    cfg["dtype"] = "float32"
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    port.set_precision(cfg)
+    fam = load_family(cfg)
+    seed, K = 3_000_000_011, m["experts_per_token"]
+
+    port_ids = []
+    real_router = moe.router_probs
+
+    def recording_router(p, c, x):
+        gates, ids, probs = real_router(p, c, x)
+        port_ids.append(ids.reshape(-1, K).clone())
+        return gates, ids, probs
+    monkeypatch.setattr(moe, "router_probs", recording_router)
+    _, model = port.build_model(cfg, fam, seed, cuda)
+    B, S, new = 8, 256, 17
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    prompt = torch.randint(0, m["vocab_size"], (B, S), generator=g,
+                           device=cuda)
+    with torch.no_grad():  # eager decode steps: every router call is seen
+        logits, state = model.prefill(prompt, max_seq=S + new)
+        outs, toks = [logits[:, -1]], [logits[:, -1:].argmax(-1)]
+        for _ in range(new - 1):
+            logits, state = model.decode_step(state, toks[-1])
+            outs.append(logits[:, 0])
+            toks.append(logits[:, 0].argmax(-1, keepdim=True))
+    got, toks = torch.stack(outs, 1), torch.cat(toks, 1)
+    del model, state
+    torch.cuda.empty_cache()
+
+    # the port routes each MoE block once at prefill and once a step; the
+    # reference once for the prompt and once for every later position,
+    # position-major, as the steps come
+    n_moe = m["layer_pattern"].count("E")
+    steps = [torch.cat(port_ids[n_moe + j::n_moe], 0) for j in range(n_moe)]
+    handed = [ids for j in range(n_moe) for ids in (port_ids[j], steps[j])]
+    calls = []
+
+    def routed_as_the_port(x, w, mm):
+        ids = handed[len(calls)]
+        calls.append(ids)
+        s = torch.sigmoid(x @ w["moe.router"])
+        gates = s.gather(-1, ids)
+        gates = gates / (gates.sum(-1, keepdim=True) + 1e-20)
+        return gates * mm["moe_routed_scale"], ids
+    monkeypatch.setattr(fam, "route", routed_as_the_port)
+    (want,) = fam.served_logits(
+        cfg, port.draw_fn(cfg, fam, seed, cuda),
+        [(torch.cat([prompt, toks[:, :-1]], 1), S)])
+    assert len(port_ids) == n_moe * new and len(calls) == len(handed)
+    assert got.shape == want.shape == (B, new, m["vocab_size"])
+    err = (got.float() - want).abs().max().item()
+    assert err < 5e-5 * want.abs().max().item(), err
 
 
 @pytest.mark.cuda
@@ -966,7 +1104,9 @@ def _graph_case(arch: str, device):
                                   sliding_window=24)
     else:
         cfg = get_config(arch, smoke=True)
-    dtype = torch.bfloat16 if arch == "jamba-v0.1-52b" else torch.float32
+    dtype = (torch.bfloat16 if arch in ("jamba-v0.1-52b",
+                                        "nemotron-3-nano-30b-a3b")
+             else torch.float32)
     model = Transformer(cfg, device=device, dtype=dtype,
                         generator=torch.Generator(device=device).manual_seed(0))
     return cfg, model, dtype
@@ -981,7 +1121,8 @@ def _graph_extras(cfg, batch: int, gen, device) -> dict:
 
 
 GRAPH_ARCHS = ["danube-width", "jamba-v0.1-52b", "mamba2-780m",
-               "qwen3-moe-30b-a3b", "whisper-base", "qwen2-vl-7b"]
+               "qwen3-moe-30b-a3b", "whisper-base", "qwen2-vl-7b",
+               "nemotron-3-nano-30b-a3b"]
 
 
 @pytest.mark.cuda

@@ -470,7 +470,8 @@ def test_gelu_mlp_is_the_tanh_approximation():
 
 @pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "mamba2-780m",
                                   "qwen3-moe-30b-a3b", "whisper-base",
-                                  "qwen2-vl-7b", "jamba-v0.1-52b"])
+                                  "qwen2-vl-7b", "jamba-v0.1-52b",
+                                  "nemotron-3-nano-30b-a3b"])
 def test_kernel_launches_counts_each_wrapper_call(arch, monkeypatch):
     """``kernel_launches`` (the exact counts the chip smoke asserts) equals
     the calls a served batch makes to each kernel wrapper, counted on the

@@ -1,7 +1,9 @@
 """The port's spans (``repro_torch.obs``): off, a span touches no profiler
 function; on, under a CPU profiler, a served prefill, a decode step and a
 training step export the spans of their layer kinds, nested as
-``obs``'s docstring lists them."""
+``obs``'s docstring lists them: an MoE layer's ``moe.route``,
+``moe.experts`` and (nemotron's shared expert) ``moe.shared`` inside its
+``moe``, and a pattern layer of nemotron's one span of its kind."""
 
 import json
 from collections import Counter
@@ -13,11 +15,13 @@ import torch.profiler
 
 from repro_torch import obs
 from repro_torch.configs import get_config
+from repro_torch.configs.pattern import option
 from repro_torch.models.transformer import Transformer, layer_kinds
 from repro_torch.serve import ServeEngine
 from repro_torch.train import adamw, init_train_state, make_train_step
 
 DANUBE, JAMBA = "h2o-danube-1.8b", "jamba-v0.1-52b"
+NEMOTRON = "nemotron-3-nano-30b-a3b"
 CPU = torch.device("cpu")
 
 
@@ -66,14 +70,15 @@ def _train(arch: str):
 
 
 def _served_kinds(arch: str) -> Counter:
-    """Spans a served pass gives per layer: the mixer, and the FF where the
-    layer has one."""
+    """Spans a served pass gives per layer: the mixer and the FF, each
+    where the layer has one."""
     cfg = get_config(arch, smoke=True)
     kinds = layer_kinds(cfg)
     want = Counter()
     for i in range(cfg.n_layers):
         k = kinds[i % len(kinds)]
-        want[k.mixer] += 1
+        if k.mixer is not None:
+            want[k.mixer] += 1
         if k.ff is not None:
             want["moe" if k.ff == "moe" else "ff"] += 1
     return want
@@ -124,6 +129,12 @@ def _served(top: str, arch: str) -> Counter:
     want = Counter({(top, None): 1, ("head", top): 1})
     for kind, n in _served_kinds(arch).items():
         want[(kind, top)] = n
+    n_moe = want[("moe", top)]
+    parts = ["moe.route", "moe.experts"]
+    if option(get_config(arch, smoke=True), "shared_expert_ff"):
+        parts.append("moe.shared")
+    for part in parts if n_moe else []:
+        want[(part, "moe")] = n_moe
     return want
 
 
@@ -132,6 +143,10 @@ CASES = {
     "jamba-prefill": (_prefill, JAMBA, lambda: _served("prefill", JAMBA)),
     "jamba-decode": (_decode, JAMBA, lambda: _served("decode", JAMBA)),
     "danube-decode": (_decode, DANUBE, lambda: _served("decode", DANUBE)),
+    "nemotron-prefill": (_prefill, NEMOTRON,
+                         lambda: _served("prefill", NEMOTRON)),
+    "nemotron-decode": (_decode, NEMOTRON,
+                        lambda: _served("decode", NEMOTRON)),
     "danube-train": (_train, DANUBE, lambda: Counter(
         {("train.forward", None): 1, ("train.backward", None): 1,
          ("train.optimizer", None): 1})),
@@ -151,3 +166,6 @@ def test_layer_kinds_give_the_counts():
     assert _served_kinds(JAMBA) == Counter(
         {"mamba": 7, "attn": 1, "ff": 4, "moe": 4})
     assert _served_kinds(DANUBE) == Counter({"attn": 2, "ff": 2})
+    # MEM*EME: one span a layer, of its kind
+    assert _served_kinds(NEMOTRON) == Counter(
+        {"mamba": 3, "moe": 3, "attn": 1})
